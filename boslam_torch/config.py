@@ -1,9 +1,10 @@
 """Solver / run configuration (PyTorch port of ``boslam/config.py``).
 
 Same fields and defaults as the JAX package, so a configuration means the
-same thing in both.  Options whose code paths the port does not carry yet
-(the CG solvers, the packed layout, the whole-step kernel) are kept as
-fields and rejected where they would be used.
+same thing in both.  Fields whose code paths the port does not carry yet
+(the CG solvers, the packed layout, GNC, the Cholesky backend choice, f64)
+are kept for that parity; ``check_ported`` rejects any non-default value of
+them, so none is accepted and then ignored.
 """
 
 from __future__ import annotations
@@ -11,6 +12,15 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+UNPORTED_FIELDS = frozenset((
+    "gnc_kt0", "gnc_anneal_iters",
+    "cg_iters", "cg_tol", "cg_restarts", "preconditioner", "coarse_q", "two_level_cycle",
+    "band_width", "band_group", "btridiag_block", "cg_warm_start", "matvec_row_chunk",
+    "gather", "coupling_dtype", "lm_split",
+    "cholesky_backend", "dtype",
+))
+
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
@@ -65,11 +75,9 @@ class SolverConfig:
     fused_step: str = "auto"  # "auto" | "off" | "force"
 
     # --- dense linear-solve backend ---
-    # "auto": the hand-written Cholesky kernel for CUDA tensors when the
-    # padded size fits MAX_VMEM_DIM, else torch.linalg; "pallas": the
-    # kernel module whenever the size fits (its plain version on the CPU);
-    # "xla": always torch.linalg (the JAX package's XLA Cholesky).
-    cholesky_backend: str = "auto"  # "auto" | "xla" | "pallas"
+    # Only "auto": the hand-written Cholesky kernel for CUDA tensors when the
+    # padded size fits MAX_VMEM_DIM, else torch.linalg.
+    cholesky_backend: str = "auto"
 
     # --- iteration control ---
     iters: int = 50
@@ -84,6 +92,15 @@ class SolverConfig:
 
     def replace(self, **kw) -> "SolverConfig":
         return dataclasses.replace(self, **kw)
+
+    def check_ported(self) -> None:
+        """Raise NotImplementedError if a field the port does not implement
+        has a value other than its default."""
+        changed = [f.name for f in dataclasses.fields(self)
+                if f.name in UNPORTED_FIELDS and getattr(self, f.name) != f.default]
+        if changed:
+            raise NotImplementedError(
+                f"not ported yet, leave at their defaults: {', '.join(changed)}")
 
     @property
     def gnc_enabled(self) -> bool:

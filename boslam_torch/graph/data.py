@@ -14,6 +14,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from boslam_torch.device import resolve_device
+
 _INDEX_FIELDS = ("b_pose", "b_lm", "o_src", "o_dst", "fixed_pose_ix")
 
 
@@ -75,14 +77,16 @@ class FactorGraph:
         )
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device="cpu") -> "FactorGraph":
+    def from_numpy(cls, arrays: dict, device=None) -> "FactorGraph":
         """Build from a dict of numpy arrays keyed by field name.
 
         This carries a graph across from the JAX package
         (``dataclasses.asdict`` of its graph mapped through ``np.asarray``),
         so that both packages compute on identical inputs.  Indices become
-        int64 and floats f32.
+        int64 and floats f32.  The graph goes to ``cuda`` unless ``device``
+        says otherwise.
         """
+        device = resolve_device(device)
         kw = {}
         for f in dataclasses.fields(cls):
             dtype = torch.int64 if f.name in _INDEX_FIELDS else torch.float32

@@ -17,8 +17,8 @@
 //   chol_solve_kernel (one block): forward L y = b and backward
 //         L^T x = y by 64-row tiles, through the stored tile inverses.
 //
-// What bounds it on the H100: an N^3/3 FMA factorization (N = 1024: 0.36
-// GFMA, ~11 us at the 67 TFLOP/s f32 CUDA-core peak) whose 3 N/64 launches
+// What bounds it on the H100: an N^3/6 FMA factorization (N = 1024: 0.18
+// GFMA, ~5 us at the 67 TFLOP/s f32 CUDA-core peak) whose 3 N/64 launches
 // run one after another, and a diagonal-tile factorization that is a
 // 64-step chain of block barriers.  The design is latency-bound, not
 // FLOP-bound, at these sizes: it keeps every launch simple and all f32 FMA

@@ -14,28 +14,30 @@
 //   dl  = Hll^-1 (-bl - U^T x)       schur_dl_kernel: column reduction of U
 //                                    plus the 2x2 block apply
 //
-// What bounds it on the H100: the Np^3/3 FMA Cholesky and the Np^2 Ml / 2
-// FMA product W U^T (Np = 1024, Ml = 384: 0.36 + 0.20 GFMA, ~17 us at the
+// What bounds it on the H100: the Np^3/6 FMA Cholesky and the Np^2 Ml / 2
+// FMA product W U^T (Np = 1024, Ml = 384: 0.18 + 0.20 GFMA, ~11 us at the
 // f32 CUDA-core peak), behind 2 Np/64 + 4 dependent launches.  As in
 // cholesky.cuh the design is latency-bound at these sizes; the GEMM skips
 // the upper tiles (the factorization reads only the lower triangle) and
 // all arithmetic is f32 FMA on the CUDA cores, never TF32.
 //
-// HllD is the dense [Ml, Ml] block-diagonal inverse that the TPU kernel
-// takes; only its 2x2 diagonal blocks are read.
+// The TPU kernel takes Hll^-1 as a dense [Ml, Ml] block-diagonal matrix;
+// this one takes its [Ml/2, 2, 2] diagonal blocks, Hb.
 #include "cholesky.cuh"
 
 namespace boslam {
 
 constexpr int KC = 32;  // depth of one GEMM stage
 
-__global__ void schur_w_kernel(const float *__restrict__ U, const float *__restrict__ HllD,
+// W[r, 2l + c] = U[r, 2l] Hb[l, 0, c] + U[r, 2l + 1] Hb[l, 1, c]
+__global__ void schur_w_kernel(const float *__restrict__ U, const float *__restrict__ Hb,
                                float *__restrict__ W, int np, int ml) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)np * ml) return;
-  const int r = (int)(idx / ml), col = (int)(idx % ml), l2 = col & ~1;
+  const int r = (int)(idx / ml), col = (int)(idx % ml), l2 = col & ~1, c = col & 1;
   const float *Ur = U + (size_t)r * ml;
-  W[idx] = Ur[l2] * HllD[(size_t)l2 * ml + col] + Ur[l2 + 1] * HllD[(size_t)(l2 + 1) * ml + col];
+  const float *Hl = Hb + 2 * l2;
+  W[idx] = Ur[l2] * Hl[c] + Ur[l2 + 1] * Hl[2 + c];
 }
 
 __global__ void __launch_bounds__(NT)
@@ -101,7 +103,7 @@ __global__ void schur_rhs_kernel(const float *__restrict__ W, const float *__res
 }
 
 __global__ void __launch_bounds__(SOLVE_THREADS)
-schur_dl_kernel(const float *__restrict__ U, const float *__restrict__ HllD,
+schur_dl_kernel(const float *__restrict__ U, const float *__restrict__ Hb,
                 const float *__restrict__ bl, const float *__restrict__ x,
                 float *__restrict__ dl, int np, int ml) {
   constexpr int G = SOLVE_THREADS / T;
@@ -119,9 +121,9 @@ schur_dl_kernel(const float *__restrict__ U, const float *__restrict__ HllD,
   }
   __syncthreads();
   if (tid < T) {
+    // row (col & 1) of block col / 2: Hb[2 col], Hb[2 col + 1]
     const int col = c0 + tid, l2 = tid & ~1;
-    const float *Hr = HllD + (size_t)col * ml + c0;
-    dl[col] = Hr[l2] * t[l2] + Hr[l2 + 1] * t[l2 + 1];
+    dl[col] = Hb[2 * col] * t[l2] + Hb[2 * col + 1] * t[l2 + 1];
   }
 }
 
@@ -129,18 +131,18 @@ schur_dl_kernel(const float *__restrict__ U, const float *__restrict__ HllD,
 
 extern "C" {
 
-// Inputs: Hpp [np,np], U [np,ml], HllD [ml,ml], bp [np], bl [ml], mask [np],
+// Inputs: Hpp [np,np], U [np,ml], Hb [ml/2,2,2], bp [np], bl [ml], mask [np],
 // lam [1] (device scalar).  Scratch: W [np,ml], S [np,np], Linv
 // [(np/64)*64*64], rhs [np], y [np].  Outputs: x [np], dl [ml].
 // np % 64 == 0, ml % 64 == 0.  Returns the first failed launch's error, else 0.
-int boslam_schur_solve(const float *Hpp, const float *U, const float *HllD, const float *bp,
+int boslam_schur_solve(const float *Hpp, const float *U, const float *Hb, const float *bp,
                        const float *bl, const float *mask, const float *lam, float *W,
                        float *S, float *Linv, float *rhs, float *y, float *x, float *dl,
                        int np, int ml, void *stream_ptr) {
   using namespace boslam;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const size_t nw = (size_t)np * ml;
-  schur_w_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, stream>>>(U, HllD, W, np, ml);
+  schur_w_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, stream>>>(U, Hb, W, np, ml);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nt = np / T;
@@ -150,7 +152,7 @@ int boslam_schur_solve(const float *Hpp, const float *U, const float *HllD, cons
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = cholesky_factor_solve(S, Linv, rhs, y, x, mask, np, stream)) != cudaSuccess)
     return (int)err;
-  schur_dl_kernel<<<ml / T, SOLVE_THREADS, 0, stream>>>(U, HllD, bl, x, dl, np, ml);
+  schur_dl_kernel<<<ml / T, SOLVE_THREADS, 0, stream>>>(U, Hb, bl, x, dl, np, ml);
   return (int)cudaGetLastError();
 }
 

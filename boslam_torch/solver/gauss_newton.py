@@ -23,28 +23,25 @@ def gauge_mask(N: int, n_poses: int, fixed_pose_ix: torch.Tensor, dtype) -> torc
     return (~is_fixed).to(dtype)
 
 
-def _use_cholesky_kernel(H: torch.Tensor, cfg: SolverConfig | None) -> bool:
-    """The kernel module for CUDA tensors (or "pallas") within the size gate."""
-    if cfg is None or cfg.cholesky_backend == "xla":
-        return False
+def _use_cholesky_kernel(H: torch.Tensor) -> bool:
+    """The Cholesky kernel for a CUDA tensor within the size gate."""
     from boslam_torch.ops.cholesky import MAX_VMEM_DIM, pad_dim
 
-    fits = pad_dim(H.shape[0]) <= MAX_VMEM_DIM
-    if cfg.cholesky_backend == "pallas":
-        return fits
-    return fits and H.is_cuda
+    return H.is_cuda and pad_dim(H.shape[0]) <= MAX_VMEM_DIM
 
 
-def solve_gauge_fixed(H, b, mask, cfg: SolverConfig | None = None):
+def solve_gauge_fixed(H, b, mask):
     """Solve H delta = -b with the fixed pose pinned to zero delta.
 
     Returns (delta, spd_ok).  A failed factorization shows as NaN in
     delta; ``spd_ok`` is False then and delta is zeroed (the state is
-    frozen rather than poisoned).
+    frozen rather than poisoned).  A CUDA tensor within the size gate goes
+    through the Cholesky kernel; otherwise ``torch.linalg`` solves, as the
+    JAX package takes XLA's Cholesky on the CPU and above the gate.
     """
     Hm = mask[:, None] * H * mask[None, :] + torch.diag(1.0 - mask)
     bm = mask * b
-    if _use_cholesky_kernel(H, cfg):
+    if _use_cholesky_kernel(H):
         from boslam_torch.ops.cholesky import cholesky_solve
 
         delta = cholesky_solve(Hm, -bm)
@@ -67,6 +64,6 @@ def gn_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping):
     N = g.state_dim
     H = H + damping * torch.eye(N, dtype=H.dtype, device=H.device)
     mask = gauge_mask(N, g.n_poses, g.fixed_pose_ix, H.dtype)
-    delta, spd_ok = solve_gauge_fixed(H, b, mask, cfg)
+    delta, spd_ok = solve_gauge_fixed(H, b, mask)
     dp, dl = unpack_delta(delta, g.n_poses, g.n_landmarks)
     return dp, dl, terms, spd_ok, {}

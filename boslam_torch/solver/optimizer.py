@@ -18,7 +18,8 @@ from boslam_torch.solver.normal_eq import chi2_stats, edge_terms
 from boslam_torch.solver.robust import robust_cost
 
 
-def _check_fused_step(cfg: SolverConfig) -> None:
+def _check_ported(cfg: SolverConfig) -> None:
+    cfg.check_ported()
     # "auto" takes the unfused path; the whole-step kernel is not ported.
     if cfg.fused_step == "force":
         raise NotImplementedError(
@@ -44,7 +45,7 @@ def _delta_norm(dp, dl):
 
 def gn_step(g: FactorGraph, cfg: SolverConfig):
     """One constant-damping GN iteration."""
-    _check_fused_step(cfg)
+    _check_ported(cfg)
     dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, cfg.damping)
     poses, landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
     stats = chi2_stats(terms, cfg)
@@ -64,6 +65,7 @@ def _robust_total(g: FactorGraph, cfg: SolverConfig) -> torch.Tensor:
 def lm_step(g: FactorGraph, lam: torch.Tensor, cfg: SolverConfig):
     """One LM trial: solve with damping ``lam``, accept iff the robust cost
     decreases, and scale lam down (accept) or up (reject)."""
+    _check_ported(cfg)
     dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, lam)
     cand_poses, cand_landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
     cand = g.with_state(cand_poses, cand_landmarks)
@@ -102,7 +104,7 @@ def solve_loop(graph: FactorGraph, cfg: SolverConfig, lam0: torch.Tensor | None 
     tensor with a leading ``iters`` axis).  ``lam0`` overrides the initial
     LM damping.
     """
-    _check_fused_step(cfg)
+    _check_ported(cfg)
     per_iter = []
     g = graph
     if cfg.optimizer == "gn":

@@ -107,11 +107,11 @@ def _pose_mask(NP_: int, fixed_ix: torch.Tensor, dtype) -> torch.Tensor:
     return (torch.arange(NP_, device=fixed_ix.device) != fixed_ix).to(dtype)[:, None]
 
 
-def _scatter(M: torch.Tensor, rows, cols, vals, accumulate=True) -> None:
-    """M[rows[e, i], cols[e, j]] (+)= vals[e, i, j], in place."""
+def _scatter(M: torch.Tensor, rows, cols, vals) -> None:
+    """M[rows[e, i], cols[e, j]] += vals[e, i, j], in place."""
     r = rows[:, :, None].expand(vals.shape)
     c = cols[:, None, :].expand(vals.shape)
-    M.index_put_((r.reshape(-1), c.reshape(-1)), vals.reshape(-1), accumulate=accumulate)
+    M.index_put_((r.reshape(-1), c.reshape(-1)), vals.reshape(-1), accumulate=True)
 
 
 def _dense_pieces(blocks: SchurBlocks, g: FactorGraph):
@@ -147,8 +147,9 @@ def dense_reduced_system(blocks: SchurBlocks, g: FactorGraph):
 
 def fused_schur_inputs(g: FactorGraph, cfg: SolverConfig, damping, terms: EdgeTerms,
                        mask: torch.Tensor):
-    """The padded inputs (Hpp, U, HllD, bp, bl, m) of
-    ``fused_schur_solve_padded``, assembled by scatter from damped blocks.
+    """The padded inputs (Hpp, U, Hb, bp, bl, m) of
+    ``fused_schur_solve_blocks``, assembled by scatter from damped blocks;
+    ``Hb`` holds the [Ml/2, 2, 2] blocks of Hll^-1 (zero on the padding).
 
     Pad rows carry mask 0, so they are exactly decoupled.
     """
@@ -166,29 +167,27 @@ def fused_schur_inputs(g: FactorGraph, cfg: SolverConfig, damping, terms: EdgeTe
     Hpp_p[:Np, :Np] = Hpp
     U_p = torch.zeros((Np_pad, Ml_pad), dtype=dtype, device=dev)
     U_p[:Np, :Ml] = U
-    HllD = torch.zeros((Ml_pad, Ml_pad), dtype=dtype, device=dev)
-    l2 = 2 * torch.arange(NL, device=dev)[:, None] + torch.arange(2, device=dev)
-    _scatter(HllD, l2, l2, blocks.Hll_inv, accumulate=False)
+    Hb = torch.zeros((Ml_pad // 2, 2, 2), dtype=dtype, device=dev)
+    Hb[:NL] = blocks.Hll_inv
     bpf = torch.zeros(Np_pad, dtype=dtype, device=dev)
     bpf[:Np] = blocks.bp.reshape(-1)
     blf = torch.zeros(Ml_pad, dtype=dtype, device=dev)
     blf[:Ml] = blocks.bl.reshape(-1)
     m = torch.zeros(Np_pad, dtype=dtype, device=dev)
     m[:Np] = mask[:, 0].repeat_interleave(3)
-    return Hpp_p, U_p, HllD, bpf, blf, m
+    return Hpp_p, U_p, Hb, bpf, blf, m
 
 
 def fused_schur_solve(g: FactorGraph, cfg: SolverConfig, damping, terms: EdgeTerms,
                       mask: torch.Tensor):
-    """Exact Schur solve through ``ops.schur_solve.fused_schur_solve_padded``:
+    """Exact Schur solve through ``ops.schur_solve.fused_schur_solve_blocks``:
     damping -> Schur correction -> Cholesky -> both back-substitutions in
     the kernel module.  Returns (dp f32[NP,3], dl f32[NL,2])."""
-    from boslam_torch.ops.schur_solve import fused_schur_solve_padded
+    from boslam_torch.ops.schur_solve import fused_schur_solve_blocks
 
     inputs = fused_schur_inputs(g, cfg, damping, terms, mask)
     # the blocks are already damped, so the kernel adds zero
-    zero = torch.zeros((), dtype=g.poses.dtype, device=g.device)
-    x, dl = fused_schur_solve_padded(*inputs, zero)
+    x, dl = fused_schur_solve_blocks(*inputs, 0.0)
     Np, Ml = 3 * g.n_poses, 2 * g.n_landmarks
     return x[:Np].reshape(g.n_poses, 3), dl[:Ml].reshape(g.n_landmarks, 2)
 
@@ -214,8 +213,7 @@ def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bo
     from boslam_torch.ops.schur_solve import fused_fits
 
     mask = _pose_mask(g.n_poses, g.fixed_pose_ix, g.poses.dtype)
-    if (cfg.cholesky_backend in ("auto", "pallas") and g.poses.is_cuda
-            and fused_fits(3 * g.n_poses, 2 * g.n_landmarks)):
+    if g.poses.is_cuda and fused_fits(3 * g.n_poses, 2 * g.n_landmarks):
         terms = edge_terms(g, cfg)
         dp, dl = fused_schur_solve(g, cfg, damping, terms, mask)
         dp, dl, ok = _nan_guard(dp, dl)
@@ -226,7 +224,7 @@ def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bo
     blocks, terms = build_blocks(g, cfg, damping)
     S, rhs_flat = dense_reduced_system(blocks, g)
     m = mask[:, 0].repeat_interleave(3)
-    delta, _spd = solve_gauge_fixed(S, -rhs_flat, m, cfg)
+    delta, _spd = solve_gauge_fixed(S, -rhs_flat, m)
     dp = delta.reshape(g.n_poses, 3) * mask  # exact zero delta on the gauge pose
 
     # landmark back-substitution: dl = Hll^-1 (-bl - Hlp dp)

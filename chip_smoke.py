@@ -55,6 +55,7 @@ def _cuda_ms(torch, fn, reps=20, warmup=3) -> float:
 
 
 def _bound_ms(fmas: float, nbytes: float) -> tuple[float, str]:
+    """Least time for ``fmas`` f32 FMAs (2 flops each) and ``nbytes`` moved."""
     t_ops = 2.0 * fmas / H100_F32_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -87,7 +88,8 @@ def check_cholesky(torch, chol, H, b, label):
     ms = _cuda_ms(torch, lambda: chol.cholesky_solve_padded(H, b))
     plain_ms = _cuda_ms(torch, lambda: chol.cholesky_solve_padded_plain(H, b), reps=5)
     lib_ms = _cuda_ms(torch, lambda: torch.cholesky_solve(b[:, None], torch.linalg.cholesky(H)))
-    bound, by = _bound_ms(n**3 / 3 + 2 * n * n, 4 * (n * n + 2 * n))
+    # factorization n^3/6 FMAs, two triangular solves n^2/2 each
+    bound, by = _bound_ms(n**3 / 6 + n * n, 4 * (n * n + 2 * n))
     r = dict(shape=[n], max_abs_err=(x_k - x_p).abs().max().item(), err_vs_f64=err_k,
              plain_err_vs_f64=err_p, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
              library_ms=lib_ms)
@@ -95,8 +97,9 @@ def check_cholesky(torch, chol, H, b, label):
     return r
 
 
-def _schur_f64(torch, Hpp, U, HllD, bp, bl, m, lam):
-    Hpp, U, HllD, bp, bl, m = (t.double() for t in (Hpp, U, HllD, bp, bl, m))
+def _schur_f64(torch, Hpp, U, Hb, bp, bl, m, lam):
+    Hpp, U, Hb, bp, bl, m = (t.double() for t in (Hpp, U, Hb, bp, bl, m))
+    HllD = torch.block_diag(*Hb)
     W = U @ HllD
     eye = torch.eye(Hpp.shape[0], dtype=torch.float64, device=Hpp.device)
     S = (Hpp - W @ U.T + lam * eye) * (m[:, None] * m[None, :]) + eye * (1.0 - m)
@@ -105,25 +108,33 @@ def _schur_f64(torch, Hpp, U, HllD, bp, bl, m, lam):
 
 
 def check_schur(torch, ss, inputs, lam, label):
-    Np, Ml = inputs[0].shape[0], inputs[2].shape[0]
-    x_k, dl_k = ss.fused_schur_solve_padded(*inputs, lam)
-    x_p, dl_p = ss.fused_schur_solve_padded_plain(*inputs, lam)
+    Np, Ml = inputs[1].shape
+    x_k, dl_k = ss.fused_schur_solve_blocks(*inputs, lam)
+    x_p, dl_p = ss.fused_schur_solve_blocks_plain(*inputs, lam)
     torch.cuda.synchronize()
     x64, dl64 = _schur_f64(torch, *inputs, float(lam))
     if not (torch.isfinite(x_k).all() and torch.isfinite(dl_k).all()):
         raise AssertionError(f"schur {label}: non-finite kernel result")
     if not bool((x_k[inputs[5] == 0] == 0).all()):
         raise AssertionError(f"schur {label}: masked rows are not exactly 0")
+    dense = list(inputs)
+    dense[2] = torch.block_diag(*inputs[2])
+    x_d, dl_d = ss.fused_schur_solve_padded(*dense, lam)
+    if not (torch.equal(x_d, x_k) and torch.equal(dl_d, dl_k)):
+        raise AssertionError(f"schur {label}: the dense-HllD signature gives another result")
     err_k = max((x_k.double() - x64).abs().max().item(), (dl_k.double() - dl64).abs().max().item())
     err_p = max((x_p.double() - x64).abs().max().item(), (dl_p.double() - dl64).abs().max().item())
     _check_error(f"schur {label}", err_k, err_p)
-    ms = _cuda_ms(torch, lambda: ss.fused_schur_solve_padded(*inputs, lam))
-    plain_ms = _cuda_ms(torch, lambda: ss.fused_schur_solve_padded_plain(*inputs, lam), reps=5)
+    ms = _cuda_ms(torch, lambda: ss.fused_schur_solve_blocks(*inputs, lam))
+    plain_ms = _cuda_ms(torch, lambda: ss.fused_schur_solve_blocks_plain(*inputs, lam), reps=5)
     # the Cholesky share of the work, by the library, as a yardstick only
     S = torch.eye(Np, device=inputs[0].device) * 4.0
     chol_lib_ms = _cuda_ms(torch, lambda: torch.cholesky_solve(inputs[3][:, None], torch.linalg.cholesky(S)))
-    fmas = 2 * Np * Ml + Np * (Np + 1) / 2 * Ml + Np * Ml + Np**3 / 3 + 2 * Np * Np + Np * Ml + 2 * Ml
-    nbytes = 4 * (Np * Np + Np * Ml + Ml * Ml + 3 * Np + 2 * Ml + 1 + Np + Ml)
+    # W, the lower triangle of W U^T, rhs, the factorization (Np^3/6), the
+    # two triangular solves (Np^2/2 each), U^T x and the 2x2 block apply
+    fmas = 2 * Np * Ml + Np * (Np + 1) / 2 * Ml + Np * Ml + Np**3 / 6 + Np * Np + Np * Ml + 2 * Ml
+    # inputs Hpp, U, Hb [Ml/2,2,2], bp, bl, mask, lam; outputs x, dl
+    nbytes = 4 * (Np * Np + Np * Ml + 2 * Ml + 3 * Np + 2 * Ml + 1 + Np + Ml)
     bound, by = _bound_ms(fmas, nbytes)
     err = max((x_k - x_p).abs().max().item(), (dl_k - dl_p).abs().max().item())
     r = dict(shape=[Np, Ml], max_abs_err=err, err_vs_f64=err_k, plain_err_vs_f64=err_p, ms=ms,
@@ -144,7 +155,8 @@ def _random_schur_inputs(torch, Np, Ml, rng):
     m = np.ones(Np, np.float32)
     m[:3] = 0.0
     m[Np - 40:] = 0.0
-    return tuple(torch.from_numpy(a).cuda() for a in (Hpp, U, HllD, bp, bl, m))
+    Hb = np.stack([HllD[2 * l:2 * l + 2, 2 * l:2 * l + 2] for l in range(Ml // 2)])
+    return tuple(torch.from_numpy(a).cuda() for a in (Hpp, U, Hb, bp, bl, m))
 
 
 def _stats(st):
@@ -270,7 +282,7 @@ def main() -> int:
     inputs = schur.fused_schur_inputs(g, cfg_s, cfg_s.damping, edge_terms(g, cfg_s), pmask)
     schur_main = check_schur(torch, ss, inputs, 0.0, "graph reduced system")
 
-    counters = {"cholesky": chol.cholesky_solve_padded, "schur": ss.fused_schur_solve_padded}
+    counters = {"cholesky": chol.cholesky_solve_padded, "schur": ss.fused_schur_solve_blocks}
 
     # ---- the main path: GN under the exact Schur solve ----
     st_cpu = _stats(solve(g_cpu, cfg_s)[1])
@@ -327,7 +339,7 @@ def main() -> int:
              plain_ms=chol_main["plain_ms"], bound_ms=chol_main["bound_ms"],
              bound_by=chol_main["bound_by"], library_ms=chol_main["library_ms"],
              shape=chol_main["shape"], path="gn-dense"),
-        dict(name="fused_schur_solve_padded", route="cuda",
+        dict(name="fused_schur_solve_blocks", route="cuda",
              source="boslam_torch/ops/csrc/schur_solve.cu",
              replaces="boslam/ops/pallas_schur.py:133", launches=schur_launches,
              max_abs_err=schur_main["max_abs_err"], ms=schur_main["ms"],

@@ -62,17 +62,25 @@ def test_schur_kernel_matches_plain(cuda):
     rng = np.random.default_rng(1)
     Np, Ml = 384, 256
     U = (0.1 * rng.standard_normal((Np, Ml))).astype(np.float32)
+    blocks = np.stack([_spd(2, rng, cond=3.0) for _ in range(Ml // 2)])
     HllD = np.zeros((Ml, Ml), np.float32)
     for l in range(Ml // 2):
-        HllD[2 * l:2 * l + 2, 2 * l:2 * l + 2] = _spd(2, rng, cond=3.0)
+        HllD[2 * l:2 * l + 2, 2 * l:2 * l + 2] = blocks[l]
     Hpp = (_spd(Np, rng, cond=1e3) + U @ HllD @ U.T).astype(np.float32)
     bp, bl = rng.standard_normal(Np).astype(np.float32), rng.standard_normal(Ml).astype(np.float32)
     m = np.ones(Np, np.float32)
     m[3:6] = 0.0
     m[-20:] = 0.0
-    args = [torch.from_numpy(a).to(cuda) for a in (Hpp, U, HllD, bp, bl, m)]
-    x_k, dl_k = ss.fused_schur_solve_padded(*args, 0.25)
-    x_p, dl_p = ss.fused_schur_solve_padded_plain(*args, 0.25)
+    args = [torch.from_numpy(a).to(cuda) for a in (Hpp, U, blocks, bp, bl, m)]
+    before = ss.fused_schur_solve_blocks.launches
+    x_k, dl_k = ss.fused_schur_solve_blocks(*args, 0.25)
+    assert ss.fused_schur_solve_blocks.launches == before + 1
+    x_p, dl_p = ss.fused_schur_solve_blocks_plain(*args, 0.25)
     torch.testing.assert_close(x_k, x_p, rtol=2e-3, atol=2e-5)
     torch.testing.assert_close(dl_k, dl_p, rtol=2e-3, atol=2e-5)
     assert bool((x_k[args[5] == 0] == 0).all())
+    # the dense-HllD signature reads the same blocks, through the same kernel
+    dense = list(args)
+    dense[2] = torch.from_numpy(HllD).to(cuda)
+    x_d, dl_d = ss.fused_schur_solve_padded(*dense, 0.25)
+    assert torch.equal(x_d, x_k) and torch.equal(dl_d, dl_k)

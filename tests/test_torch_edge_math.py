@@ -85,7 +85,8 @@ def test_robust_kernels(kernel, quirk):
 def graphs():
     ig, _ = generate_sequence(120, 60, seed=7, loop_closures=3)
     gj, _ = build_graph_jax(ig, init="triangulate")
-    g = FactorGraph.from_numpy({k: np.asarray(v) for k, v in dataclasses.asdict(gj).items()})
+    g = FactorGraph.from_numpy({k: np.asarray(v) for k, v in dataclasses.asdict(gj).items()},
+                               device="cpu")
     return g, gj
 
 

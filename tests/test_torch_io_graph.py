@@ -146,7 +146,8 @@ def test_from_numpy_carries_jax_graph():
     """A JAX graph carried across keeps every value; indices become int64."""
     ig, _ = generate_sequence_jax(50, 25, seed=4)
     gj, _ = build_graph_jax(ig, init="triangulate")
-    g = FactorGraph.from_numpy({k: np.asarray(v) for k, v in dataclasses.asdict(gj).items()})
+    g = FactorGraph.from_numpy({k: np.asarray(v) for k, v in dataclasses.asdict(gj).items()},
+                               device="cpu")
     for f in dataclasses.fields(g):
         t = getattr(g, f.name)
         assert t.dtype == (torch.int64 if t.dtype != torch.float32 else torch.float32)

@@ -34,7 +34,10 @@ def test_no_jax_and_no_boslam_imported():
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
+    import dataclasses
+
     from boslam_torch.graph.build import build_graph
+    from boslam_torch.graph.data import FactorGraph
     from boslam_torch.synth import generate_sequence
 
     ig, _ = generate_sequence(20, 10, seed=0)
@@ -42,6 +45,10 @@ def test_entry_points_default_to_cuda():
         build_graph(ig)
     g, _ = build_graph(ig, device="cpu")
     assert g.device.type == "cpu"
+    arrays = {k: v.numpy() for k, v in dataclasses.asdict(g).items()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FactorGraph.from_numpy(arrays)
+    assert FactorGraph.from_numpy(arrays, device="cpu").device.type == "cpu"
 
 
 def test_cli_defaults_to_cuda(tmp_path):

@@ -88,7 +88,8 @@ def test_cholesky_checks_inputs():
 def small_graph():
     ig, _ = generate_sequence(40, 20, seed=11)
     gj, _ = build_graph_jax(ig, init="triangulate")
-    g = FactorGraph.from_numpy({k: np.asarray(v) for k, v in dataclasses.asdict(gj).items()})
+    g = FactorGraph.from_numpy({k: np.asarray(v) for k, v in dataclasses.asdict(gj).items()},
+                               device="cpu")
     return g, gj
 
 

@@ -4,10 +4,11 @@ solves, on the CPU, against ``boslam.solver.optimizer`` with
 
 Tolerances: statistics of one state are compared at rtol 1e-6.  After a
 solve, states differ by the f32 forward error of the ~1e7-conditioned
-reduced system, so deltas use the JAX suite's reference-scale bound
-(test_pallas_schur.py:79, 3e-2 * max|dp|) and chi2 traces its bound for
-two f32 summation orders (test_assembly_modes.py:56, rtol 5e-4).  The
-converged chi2 uses test_pallas_gn_step.py:93's rel 1e-5.
+system.  The step-0 state is held to twice that error as the JAX package
+itself shows it: the gap between its own dense and Schur solves of the
+same step.  chi2 traces use the bound for two f32 summation orders
+(test_assembly_modes.py:56, rtol 5e-4), and the converged chi2
+test_pallas_gn_step.py:93's rel 1e-5.
 """
 
 import dataclasses
@@ -40,7 +41,8 @@ def _few_threads():
 def _graphs(seed, loop_closures=0):
     ig, _ = generate_sequence(301, 141, seed=seed, loop_closures=loop_closures)
     gj, _ = build_graph_jax(ig, init="triangulate")
-    g = FactorGraph.from_numpy({k: np.asarray(v) for k, v in dataclasses.asdict(gj).items()})
+    g = FactorGraph.from_numpy({k: np.asarray(v) for k, v in dataclasses.asdict(gj).items()},
+                               device="cpu")
     return g, gj
 
 
@@ -52,21 +54,29 @@ def _solve_both(g, gj, **kw):
 
 @pytest.mark.parametrize("loop_closures", [0, 4])
 def test_schur_step0(loop_closures):
-    """One GN-schur step at reference size (seed 0): the statistics of the
-    shared initial state at rtol 1e-6, the updated state at the delta bound."""
+    """One GN-schur step at reference size (seed 0).  The statistics of the
+    shared initial state hold at rtol 1e-6.  The updated poses, landmarks
+    and delta_norm hold within 2x the gap between the JAX package's own
+    dense and Schur steps from that state (the gap is 1.4e-3 to 1.8e-3 in
+    the state on these graphs, max|step| ~6.3; the port's distance from
+    the JAX Schur step is 0.4x to 1.3x the gap)."""
     g, gj = _graphs(0, loop_closures)
     g1, s1 = opt.gn_step(g, SolverConfig(linear_solver="schur", fused_step="off"))
     gj1, sj1 = opt_jax.gn_step(gj, SolverConfigJax(linear_solver="schur", fused_step="off"))
+    gjd, sjd = opt_jax.gn_step(gj, SolverConfigJax(linear_solver="dense", fused_step="off"))
     for k in ("chi2_bearing", "chi2_odometry", "chi2_robust"):
         np.testing.assert_allclose(s1[k].numpy(), np.asarray(sj1[k]), rtol=1e-6, err_msg=k)
     for k in ("n_bearing_clamped", "n_odometry_clamped", "spd_ok", "accepted"):
         assert s1[k].item() == np.asarray(sj1[k]).item(), k
-    dp_j = np.asarray(gj1.poses) - np.asarray(gj.poses)
-    dl_j = np.asarray(gj1.landmarks) - np.asarray(gj.landmarks)
-    np.testing.assert_allclose(g1.poses.numpy(), np.asarray(gj1.poses), atol=3e-2 * np.abs(dp_j).max())
-    np.testing.assert_allclose(g1.landmarks.numpy(), np.asarray(gj1.landmarks),
-                               atol=3e-2 * np.abs(dl_j).max())
-    np.testing.assert_allclose(s1["delta_norm"].numpy(), np.asarray(sj1["delta_norm"]), rtol=3e-2)
+    for k in ("poses", "landmarks", "delta_norm"):
+        port = (getattr(g1, k) if k != "delta_norm" else s1[k]).numpy()
+        jax_s = np.asarray(getattr(gj1, k) if k != "delta_norm" else sj1[k])
+        jax_d = np.asarray(getattr(gjd, k) if k != "delta_norm" else sjd[k])
+        gap, err = np.abs(jax_d - jax_s).max(), np.abs(port - jax_s).max()
+        print(f"step0 loop_closures={loop_closures} {k}: port-vs-jax {err:.4e}, "
+              f"jax dense-vs-schur {gap:.4e}, ratio {err / gap:.3f}")
+        assert 0.0 < gap < 1e-2, (k, gap)
+        assert err <= 2.0 * gap, (k, err, gap)
 
 
 def test_schur_converged_50_iterations():
@@ -127,3 +137,28 @@ def test_unported_options_raise():
         opt.solve(g, SolverConfig(linear_solver="schur", fused_step="force", iters=1))
     with pytest.raises(NotImplementedError):
         opt.solve(g, SolverConfig(linear_solver="schur_cg", iters=1))
+
+
+@pytest.mark.parametrize("field, value", [
+    ("dtype", "float64"), ("gnc_kt0", 50.0), ("cholesky_backend", "xla"),
+    ("cg_iters", 10), ("gather", "windowed"), ("coupling_dtype", "bfloat16"),
+])
+@pytest.mark.parametrize("optimizer", ["gn", "lm"])
+def test_unported_fields_raise(field, value, optimizer):
+    """A field the port keeps only for parity with the JAX config is refused
+    at any value but its default, on every step, rather than ignored."""
+    from boslam_torch.config import UNPORTED_FIELDS
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.synth import generate_sequence as generate_sequence_torch
+
+    assert field in UNPORTED_FIELDS
+    g, _ = build_graph(generate_sequence_torch(20, 10, seed=0)[0], device="cpu")
+    cfg = SolverConfig(linear_solver="schur", optimizer=optimizer, iters=1, **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        opt.solve(g, cfg)
+    with pytest.raises(NotImplementedError, match=field):
+        if optimizer == "gn":
+            opt.gn_step(g, cfg)
+        else:
+            opt.lm_step(g, torch.ones(()), cfg)
+    opt.solve(g, cfg.replace(**{field: getattr(SolverConfig(), field)}))
