@@ -7,7 +7,9 @@ Usage:
   python -m boslam_torch synth --poses 300 --out /tmp/synth.g2o
 
 The solve prints a per-iteration chi2 table.  ``--device`` defaults to
-``cuda`` and fails on a machine without it.
+``cuda`` and fails on a machine without it.  GN under ``--linear-solver
+schur`` takes the whole-step kernel on the card, the unfused path on the
+CPU.
 """
 
 from __future__ import annotations

@@ -69,9 +69,11 @@ class SolverConfig:
     assembly: str = "auto"  # "auto" | "scatter" | "matmul"
     matmul_assembly_budget: int = 40_000_000
 
-    # --- whole-step kernel ---
-    # "auto": the unfused path (the whole-step kernel is not ported yet);
-    # "off": the unfused path; "force": raises NotImplementedError.
+    # --- whole-step kernel (GN + "schur" within ops.gn_step.fused_gn_fits) ---
+    # "auto": the whole-step CUDA kernel for a CUDA graph, the unfused path
+    # for a CPU graph; "force": the whole step on any device (the kernel,
+    # or its plain version for a CPU graph); "off": the unfused path.  LM
+    # and graphs outside the gate always take the unfused path.
     fused_step: str = "auto"  # "auto" | "off" | "force"
 
     # --- dense linear-solve backend ---

@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.  The
 libraries go to ``build/boslam_torch_kernels/`` at the root of the
-checkout, named by a hash of their sources and flags, so an edited source
-is rebuilt and an unchanged one is reused.  Nothing is built at import:
-the first launch (or ``build()``) compiles, one ``nvcc`` per source, all
-started together.
+checkout, named by a hash of the flags, the ``.cu`` file and every
+``csrc`` header it includes, so an edited source or header is rebuilt and
+an unchanged one is reused.  Nothing is built at import: the first launch
+(or ``build()``) compiles, one ``nvcc`` per source, all started together.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "boslam_torch_kernels"
-KERNELS = ("cholesky", "schur_solve")
-_HEADERS = ("cholesky.cuh",)
+KERNELS = ("cholesky", "schur_solve", "gn_step")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,9 +42,22 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list:
+    """``<name>.cu`` and every ``csrc`` header it includes, directly or not."""
+    order, todo = [], [f"{name}.cu"]
+    while todo:
+        src = todo.pop(0)
+        if src in order:
+            continue
+        order.append(src)
+        todo.extend(_INCLUDE.findall((CSRC / src).read_text()))
+    return order
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (f"{name}.cu",) + _HEADERS:
+    for src in sources(name):
+        h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -3,7 +3,9 @@
 
 The loop stays on the device: no ``.item()`` and no host sync inside the
 iterations.  Per-iteration stats are tensors, stacked at the end into one
-tensor per key with a leading ``iters`` axis.
+tensor per key with a leading ``iters`` axis.  GN under the exact Schur
+solve takes the whole-step path (``ops/gn_step.py``) where
+``_fused_step_applicable`` admits the graph, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -20,13 +22,24 @@ from boslam_torch.solver.robust import robust_cost
 
 def _check_ported(cfg: SolverConfig) -> None:
     cfg.check_ported()
-    # "auto" takes the unfused path; the whole-step kernel is not ported.
-    if cfg.fused_step == "force":
-        raise NotImplementedError(
-            "fused_step='force' needs the whole-step GN kernel, which is not ported yet"
-        )
-    if cfg.fused_step not in ("auto", "off"):
+    if cfg.fused_step not in ("auto", "off", "force"):
         raise ValueError(f"unknown fused_step {cfg.fused_step!r}")
+
+
+def _fused_step_applicable(g: FactorGraph, cfg: SolverConfig) -> bool:
+    """Gate for the whole-step path (mirror of the JAX package's gate, with
+    "the graph is on CUDA" for "the backend is a TPU").  ``"force"`` passes
+    the same gate first, then takes the path on any device: the CUDA kernel
+    for a CUDA graph, its plain version for a CPU graph."""
+    if cfg.fused_step == "off" or cfg.linear_solver != "schur":
+        return False
+    if cfg.use_autodiff_jacobians or cfg.robust not in ("threshold", "huber", "none"):
+        return False
+    from boslam_torch.ops.gn_step import fused_gn_fits
+
+    if not fused_gn_fits(g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry):
+        return False
+    return cfg.fused_step == "force" or g.poses.is_cuda
 
 
 def _build_and_solve(g: FactorGraph, cfg: SolverConfig, damping):
@@ -46,6 +59,10 @@ def _delta_norm(dp, dl):
 def gn_step(g: FactorGraph, cfg: SolverConfig):
     """One constant-damping GN iteration."""
     _check_ported(cfg)
+    if _fused_step_applicable(g, cfg):
+        from boslam_torch.ops.gn_step import fused_gn_step
+
+        return fused_gn_step(g, cfg)
     dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, cfg.damping)
     poses, landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
     stats = chi2_stats(terms, cfg)
@@ -108,6 +125,10 @@ def solve_loop(graph: FactorGraph, cfg: SolverConfig, lam0: torch.Tensor | None 
     per_iter = []
     g = graph
     if cfg.optimizer == "gn":
+        if _fused_step_applicable(graph, cfg):
+            from boslam_torch.ops.gn_step import fused_gn_solve
+
+            return fused_gn_solve(graph, cfg)
         for _ in range(cfg.iters):
             g, stats = gn_step(g, cfg)
             per_iter.append(stats)

@@ -7,9 +7,15 @@ Builds the hand-written CUDA kernels from the sources in this checkout
 (boslam_torch/ops/csrc, into build/boslam_torch_kernels/), holds each
 kernel against its plain PyTorch version and an f64 solve on the card,
 times them, then drives the port's paths at the reference dataset's size:
-GN under the exact Schur solve for 50 iterations (the main path), GN under
-the dense solve for 50 iterations, and LM under the Schur solve for 10.
-Each path is checked against the port's own CPU run of the same graph.
+GN under the exact Schur solve with the whole-step kernel off (gn-schur)
+for 50 iterations, GN under the dense solve for 50, LM under the Schur
+solve for 10, and the main path, GN under the exact Schur solve with the
+default fused_step="auto", which takes the whole-step kernel (gn-fused),
+for 50 on a chain graph and 50 on a graph with four loop closures.  Each
+path is checked against the port's own CPU run of the same graph.  The
+whole step is also held against its plain version under each robust
+kernel, and driven on a closure graph where the f32 reduced system fails
+at an iterate, where a failed step must keep the state.
 
 Prints the card, the build, one line per check, then a JSON line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  Any failed
@@ -19,6 +25,7 @@ printing any result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,6 +37,12 @@ H100_F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 SEED = 3  # generate_sequence(301, 141, seed=3): 301 poses, 141 landmarks, N = 1185
 ITERS = 50
+# generate_sequence(301, 141, seed=16, loop_closures=4): on seed 3 the
+# closure graph is still descending at iteration 50, and on seed 0 the f32
+# Cholesky of the reduced system fails at some iterate, after which the
+# whole step keeps its state (PERF.md, section 7)
+CLOSURE_SEED = 16
+STALL_SEED = 0  # driven too: a failed step must keep the state
 
 
 def _card_line() -> str:
@@ -144,6 +157,178 @@ def check_schur(torch, ss, inputs, lam, label):
     return r
 
 
+def _f64_step(g, cfg):
+    """The same GN step solved in f64 on the CPU (the port's dense path)."""
+    from boslam_torch.solver.optimizer import gn_step
+
+    g = g.to("cpu")
+    g64 = dataclasses.replace(g, **{f.name: getattr(g, f.name).double()
+                                    for f in dataclasses.fields(g)
+                                    if getattr(g, f.name).is_floating_point()})
+    return gn_step(g64, cfg.replace(linear_solver="dense", fused_step="off"))[0]
+
+
+def _gn_step_work(g):
+    """(FMAs, bytes) that one GN step needs on this graph.
+
+    FMAs: the edge terms (~60 per bearing, ~230 per odometry edge), the
+    sums, the landmark elimination per landmark with k distinct observing
+    poses (W: 3k x 2, the lower triangle of W U^T: 3k(3k+1)/2 entries of
+    2 FMAs, its rhs share), the Cholesky of S over its envelope under the
+    pose order (row i with w_i entries left of the diagonal: w_i(w_i+1)/2;
+    rows are coupled through odometry and shared landmarks), both
+    substitutions, dl and boxplus.  Bytes: the state in and out, the edges
+    and the stats row."""
+    NP_, NL, NB, NO = g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry
+    bp, bl = g.b_pose.cpu().numpy(), g.b_lm.cpu().numpy()
+    src, dst = g.o_src.cpu().numpy(), g.o_dst.cpu().numpy()
+    pairs = np.unique(bp * NL + bl)
+    k = np.bincount(pairs % NL, minlength=NL).astype(np.float64)
+    schur = np.sum(3 * k * 2 * 2 + 3 * k * (3 * k + 1) + 3 * k * 2)
+    first = np.arange(NP_)
+    np.minimum.at(first, np.maximum(src, dst), np.minimum(src, dst))
+    lm_first = np.full(NL, NP_)
+    np.minimum.at(lm_first, bl, bp)
+    np.minimum.at(first, bp, lm_first[bl])
+    w = ((3 * np.arange(NP_)[:, None] + np.arange(3)) - 3 * first[:, None]).astype(np.float64)
+    chol = np.sum(w * (w + 1) / 2) + 2 * np.sum(w + 1)
+    edges = 60 * NB + 230 * NO + 9 * (NB + 2 * NO) + 11 * NB + 9 * NO + 10 * NL
+    fmas = edges + schur + chol + 6 * len(pairs) + 4 * NL + 8 * NP_ + 2 * NL
+    nbytes = 4 * (2 * (3 * NP_ + 2 * NL) + 4 * NB + 14 * NO + 2 + 8)
+    return float(fmas), float(nbytes)
+
+
+def check_gn_step(torch, gs, g, cfg, label):
+    """One whole step on the card: the kernel against its plain version and
+    the unfused Schur step, on the card and on the CPU, all five against the
+    f64 step.
+
+    The state is held to the f64 step: the kernel's distance from it at most
+    twice the largest of the four other f32 steps' distances.  The distance
+    between two f32 steps (printed) is no measure: at the ~1e7 condition of
+    the system each lands 5e-4 to 5e-3 from the f64 step, in its own
+    direction, and the plain and unfused steps on the card sum with atomics,
+    so theirs changes from run to run (tools/gn_step_accuracy.py).  ``g`` is
+    built on the CPU, so the kernel's reading repeats."""
+    from boslam_torch.solver.optimizer import gn_step
+
+    prep = gs.prep_static(g)
+    poses, lms = g.poses.clone(), g.landmarks.clone()
+    kern = gs.GNStepKernel(prep, poses, lms, cfg)
+    row = torch.zeros(gs.STATS_WIDTH, device=g.device)
+    kern.step(row)
+    p_p, l_p, row_p = gs.fused_gn_step_plain(prep, g.poses, g.landmarks, cfg)
+    g_u, _ = gn_step(g, cfg.replace(fused_step="off"))
+    g_cpu = g.to("cpu")
+    p_c, l_c, _ = gs.fused_gn_step_plain(gs.prep_static(g_cpu), g_cpu.poses, g_cpu.landmarks, cfg)
+    g_uc, _ = gn_step(g_cpu, cfg.replace(fused_step="off"))
+    torch.cuda.synchronize()
+    rk, rp = row.cpu().numpy(), row_p.cpu().numpy()
+    if not (np.allclose(rk[:3], rp[:3], rtol=1e-5, atol=1e-6) and np.array_equal(rk[3:5], rp[3:5])
+            and rk[6] == 1.0 and rp[6] == 1.0):
+        raise AssertionError(f"gn_step {label}: stats {rk.tolist()} vs plain {rp.tolist()}")
+
+    def dist(a, b):
+        return (a.double().cpu() - b.double().cpu()).abs().max().item()
+
+    x64 = _f64_step(g, cfg)
+    states = {"kernel": (poses, lms), "plain": (p_p, l_p), "unfused": (g_u.poses, g_u.landmarks),
+              "plain cpu": (p_c, l_c), "unfused cpu": (g_uc.poses, g_uc.landmarks)}
+    err64 = {k: max(dist(P, x64.poses), dist(L, x64.landmarks)) for k, (P, L) in states.items()}
+    max_abs_err = max(dist(poses, p_p), dist(lms, l_p))
+    gap = max(dist(g_u.poses, p_p), dist(g_u.landmarks, l_p))
+    if not err64["kernel"] <= 2.0 * max(v for k, v in err64.items() if k != "kernel"):
+        raise AssertionError(f"gn_step {label}: kernel-plain {max_abs_err:.3e}, unfused-plain "
+                             f"{gap:.3e}, vs f64 {err64}")
+    ms = _cuda_ms(torch, lambda: kern.step(row))
+    plain_ms = _cuda_ms(torch, lambda: gs.fused_gn_step_plain(prep, g.poses, g.landmarks, cfg), reps=5)
+    fmas, nbytes = _gn_step_work(g)
+    bound, by = _bound_ms(fmas, nbytes)
+    # the dense algorithm's own count, for scale: W U^T lower half, Cholesky, solves
+    dense_fmas = prep.Np * (prep.Np + 1) / 2 * prep.Ml + prep.Np**3 / 6 + prep.Np**2
+    r = dict(shape=[prep.Np, prep.Ml], graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry],
+             robust=[cfg.robust, cfg.kernel_threshold, cfg.reference_kernel_quirk],
+             clamped=[int(rk[3]), int(rk[4])],
+             max_abs_err=max_abs_err, unfused_vs_plain=gap, err_vs_f64=err64, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound, bound_by=by, fmas=fmas, bytes=nbytes,
+             dense_algorithm_bound_ms=_bound_ms(dense_fmas, 0.0)[0], library_ms=None)
+    print(f"gn_step {label}: " + json.dumps(r))
+    return r
+
+
+def run_fused(torch, solve, g, g_cpu, cfg, counters, chi2_schur, meta, gt, label):
+    """The whole-step path for cfg.iters iterations, twice: launch counts,
+    the converged chi2 against the CPU run (fused_step="force", the plain
+    version) and the card's gn-schur run, and a bitwise repeat."""
+    from boslam_torch.metrics import ate_metrics, match_gt_poses
+
+    st_cpu = _stats(solve(g_cpu, cfg.replace(fused_step="force"))[1])
+    g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
+    want = {k: (cfg.iters if k == "gn_step" else 0) for k in counters}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    c, c_cpu = st["chi2_robust"], st_cpu["chi2_robust"]
+    rel_cpu = abs(c[-1] - c_cpu[-1]) / c_cpu[-1]
+    rel_schur = abs(c[-1] - chi2_schur) / chi2_schur
+    if not (np.isfinite(c).all() and st["spd_ok"].all() and c[-1] < c[0]
+            and rel_cpu < 1e-4 and rel_schur < 1e-4):
+        raise AssertionError(f"{label}: chi2 {c[0]} -> {c[-1]}, CPU {c_cpu[-1]} (rel {rel_cpu:.2e}), "
+                             f"gn-schur {chi2_schur} (rel {rel_schur:.2e}), spd {st['spd_ok'].all()}")
+    g3, st2, _, secs_warm = _run_path(torch, solve, g, cfg, counters)
+    if not (np.array_equal(st2["chi2_robust"], c) and torch.equal(g3.poses, g2.poses)
+            and torch.equal(g3.landmarks, g2.landmarks)):
+        raise AssertionError(f"{label}: a second run is not bitwise identical")
+    ate = ate_metrics(g2.poses.cpu().numpy(), match_gt_poses(meta, gt))
+    print(f"{label}: " + json.dumps(dict(
+        launches=counts, chi2_first=float(c[0]), chi2_final=float(c[-1]),
+        chi2_final_cpu=float(c_cpu[-1]), rel_vs_cpu=float(rel_cpu),
+        chi2_final_gn_schur=float(chi2_schur), rel_vs_gn_schur=float(rel_schur),
+        bitwise_repeat=True, ate_rmse_aligned=ate["ate_rmse_aligned"],
+        ms_per_iter_first_run=secs / cfg.iters * 1e3, ms_per_iter=secs_warm / cfg.iters * 1e3)))
+    return counts["gn_step"]
+
+
+def _first_failed_step(st, repeats):
+    """Index of the first step whose new state was not finite, or None.
+
+    A failed step keeps the state (the guard of pallas_gn_step.py:911-915).
+    With ``repeats``, for a step that gives the same bits from the same
+    inputs, every later step then starts from the same state, fails the
+    same way and reads the same chi2."""
+    ok, c = st["spd_ok"], st["chi2_robust"]
+    if not np.isfinite(c).all():
+        raise AssertionError(f"non-finite chi2 {c}")
+    if ok.all():
+        return None
+    k = int(np.argmin(ok))
+    if repeats and (ok[k:].any() or not (c[k:] == c[k]).all()):
+        raise AssertionError(f"steps after the failed step {k} moved: spd_ok {ok[k:]}, chi2 {c[k:]}")
+    return k
+
+
+def run_stall(torch, solve, g, g_cpu, cfg, counters, label):
+    """The whole step on a graph where the f32 Cholesky of the reduced
+    system S = Hpp - U Hll^-1 U^T can fail (NaN) at an iterate (PERF.md,
+    section 7): the kernel keeps the state from its first failed step on.
+    Its plain version on the CPU (whose f32 products need not repeat to the
+    bit) and the card's unfused path are printed beside it."""
+    g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
+    want = {k: (cfg.iters if k == "gn_step" else 0) for k in counters}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    if not (torch.isfinite(g2.poses).all() and torch.isfinite(g2.landmarks).all()):
+        raise AssertionError(f"{label}: non-finite final state")
+    k = _first_failed_step(st, repeats=True)
+    st_cpu = _stats(solve(g_cpu, cfg.replace(fused_step="force"))[1])
+    k_cpu = _first_failed_step(st_cpu, repeats=False)
+    _, st_u, _, _ = _run_path(torch, solve, g, cfg.replace(fused_step="off"), counters)
+    print(f"{label}: " + json.dumps(dict(
+        launches=counts, first_failed_step=k, chi2_at_stall=float(st["chi2_robust"][-1]),
+        plain_cpu_first_failed_step=k_cpu, plain_cpu_chi2_final=float(st_cpu["chi2_robust"][-1]),
+        unfused_spd_ok=bool(st_u["spd_ok"].all()),
+        unfused_chi2_final=float(st_u["chi2_robust"][-1]), ms_per_iter=secs / cfg.iters * 1e3)))
+
+
 def _random_schur_inputs(torch, Np, Ml, rng):
     U = (0.1 * rng.standard_normal((Np, Ml))).astype(np.float32)
     HllD = np.zeros((Ml, Ml), np.float32)
@@ -224,6 +409,7 @@ def main() -> int:
     from boslam_torch.metrics import ate_metrics, match_gt_poses
     from boslam_torch.ops import _build
     from boslam_torch.ops import cholesky as chol
+    from boslam_torch.ops import gn_step as gs
     from boslam_torch.ops import schur_solve as ss
     from boslam_torch.solver import schur
     from boslam_torch.solver.gauss_newton import gauge_mask
@@ -281,10 +467,29 @@ def main() -> int:
     pmask = schur._pose_mask(g.n_poses, g.fixed_pose_ix, torch.float32)
     inputs = schur.fused_schur_inputs(g, cfg_s, cfg_s.damping, edge_terms(g, cfg_s), pmask)
     schur_main = check_schur(torch, ss, inputs, 0.0, "graph reduced system")
+    cfg_f = SolverConfig(linear_solver="schur", iters=ITERS)  # fused_step="auto"
+    g_step = g_cpu.to("cuda")
+    gn_main = check_gn_step(torch, gs, g_step, cfg_f, "graph 301/141")
+    # the kernel's other robust branches; at a threshold of 1e-3 bearing and
+    # odometry edges both clamp, so both weights and the odometry b-side are live
+    for name, kw in (("none", dict(robust="none")),
+                     ("huber", dict(robust="huber", kernel_threshold=1e-3)),
+                     ("textbook threshold", dict(reference_kernel_quirk=False,
+                                                 kernel_threshold=1e-3))):
+        r = check_gn_step(torch, gs, g_step, cfg_f.replace(**kw), f"graph 301/141 robust {name}")
+        if "kernel_threshold" in kw and min(r["clamped"]) == 0:
+            raise AssertionError(f"gn_step robust {name}: clamped {r['clamped']}, want both > 0")
+    ig_cap, _ = generate_sequence(512, 300, seed=SEED)
+    g_cap = build_graph(ig_cap, init="triangulate", device="cpu")[0].to("cuda")
+    if not gs.fused_gn_fits(g_cap.n_poses, g_cap.n_landmarks, g_cap.n_bearing, g_cap.n_odometry):
+        raise AssertionError("the (512, 300) graph is outside fused_gn_fits")
+    check_gn_step(torch, gs, g_cap, cfg_f, f"graph {g_cap.n_poses}/{g_cap.n_landmarks} at the cap")
+    del g_cap
 
-    counters = {"cholesky": chol.cholesky_solve_padded, "schur": ss.fused_schur_solve_blocks}
+    counters = {"cholesky": chol.cholesky_solve_padded, "schur": ss.fused_schur_solve_blocks,
+                "gn_step": gs.fused_gn_step}
 
-    # ---- the main path: GN under the exact Schur solve ----
+    # ---- gn-schur: GN under the exact Schur solve, the whole-step kernel off ----
     st_cpu = _stats(solve(g_cpu, cfg_s)[1])
     g2, st, counts, secs = _run_path(torch, solve, g, cfg_s, counters)
     schur_launches = counts["schur"]
@@ -328,7 +533,24 @@ def main() -> int:
         launches=counts_l, chi2_first=float(cl[0]), chi2_last=float(cl[-1]),
         accepted=int(st_l["accepted"].sum()), ms_per_iter_first_run=secs_l / 10 * 1e3)))
 
-    for label, cfg in (("gn-schur", cfg_s), ("gn-dense", cfg_d)):
+    # ---- the main path: GN, exact Schur, fused_step="auto" -> the whole-step kernel ----
+    fused_launches = run_fused(torch, solve, g, g_cpu, cfg_f, counters, float(c[-1]), meta, gt,
+                               "gn-fused")
+    ig_lc, gt_lc = generate_sequence(301, 141, seed=CLOSURE_SEED, loop_closures=4)
+    g_lc, meta_lc = build_graph(ig_lc, init="triangulate")
+    g_lc_cpu, _ = build_graph(ig_lc, init="triangulate", device="cpu")
+    print(f"graph: seed {CLOSURE_SEED}, 4 loop closures, {g_lc.n_poses} poses, "
+          f"{g_lc.n_landmarks} landmarks, {g_lc.n_bearing} bearing + {g_lc.n_odometry} odometry edges")
+    _, st_lc, _, _ = _run_path(torch, solve, g_lc, cfg_s, counters)
+    run_fused(torch, solve, g_lc, g_lc_cpu, cfg_f, counters, float(st_lc["chi2_robust"][-1]),
+              meta_lc, gt_lc, "gn-fused 4 loop closures")
+    ig_st, _ = generate_sequence(301, 141, seed=STALL_SEED, loop_closures=4)
+    g_st, _ = build_graph(ig_st, init="triangulate")
+    g_st_cpu, _ = build_graph(ig_st, init="triangulate", device="cpu")
+    run_stall(torch, solve, g_st, g_st_cpu, cfg_f, counters,
+              f"gn-fused 4 loop closures seed {STALL_SEED}")
+
+    for label, cfg in (("gn-schur", cfg_s), ("gn-dense", cfg_d), ("gn-fused", cfg_f)):
         print(f"profile {label}: " + json.dumps(profile_path(torch, solve, g, cfg)))
 
     kernels = [
@@ -346,6 +568,11 @@ def main() -> int:
              plain_ms=schur_main["plain_ms"], bound_ms=schur_main["bound_ms"],
              bound_by=schur_main["bound_by"], library_ms=None,
              shape=schur_main["shape"], path="gn-schur"),
+        dict(name="fused_gn_step", route="cuda", source="boslam_torch/ops/csrc/gn_step.cu",
+             replaces="boslam/ops/pallas_gn_step.py:792", launches=fused_launches,
+             max_abs_err=gn_main["max_abs_err"], ms=gn_main["ms"], plain_ms=gn_main["plain_ms"],
+             bound_ms=gn_main["bound_ms"], bound_by=gn_main["bound_by"], library_ms=None,
+             shape=gn_main["shape"], path="gn-fused"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

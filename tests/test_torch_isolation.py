@@ -15,6 +15,7 @@ _PROBE = """
 import sys
 import boslam_torch, boslam_torch.cli, boslam_torch.metrics, boslam_torch.synth
 import boslam_torch.ops.cholesky, boslam_torch.ops.schur_solve, boslam_torch.solver.optimizer
+import boslam_torch.ops.gn_step
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "boslam" or m.startswith("boslam."))

@@ -134,8 +134,6 @@ def test_lm_few_iterations(linear_solver):
 def test_unported_options_raise():
     g, _ = _graphs(0)
     with pytest.raises(NotImplementedError):
-        opt.solve(g, SolverConfig(linear_solver="schur", fused_step="force", iters=1))
-    with pytest.raises(NotImplementedError):
         opt.solve(g, SolverConfig(linear_solver="schur_cg", iters=1))
 
 
