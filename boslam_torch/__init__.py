@@ -3,8 +3,10 @@
 Robust damped Gauss-Newton / Levenberg-Marquardt over SE(2) poses and 2D
 landmarks with one gauge-fixed pose, on tensors.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.  The dense and Schur
-linear solves go through hand-written CUDA kernels (``boslam_torch/ops``)
-on the card and through their plain PyTorch versions on the CPU.
+linear solves, the whole GN step and the packed path's windowed gather go
+through hand-written CUDA kernels (``boslam_torch/ops``) on the card and
+through their plain PyTorch versions on the CPU.  ``solve_packed`` is the
+dual-packed Schur+PCG scale path.
 """
 
 import torch as _torch
@@ -20,7 +22,7 @@ from boslam_torch.config import SolverConfig  # noqa: E402
 from boslam_torch.graph.build import build_graph  # noqa: E402
 from boslam_torch.graph.data import FactorGraph, GraphMeta  # noqa: E402
 from boslam_torch.io.g2o import parse_g2o, write_g2o  # noqa: E402
-from boslam_torch.solver.optimizer import solve  # noqa: E402
+from boslam_torch.solver.optimizer import solve, solve_packed  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -32,4 +34,5 @@ __all__ = [
     "write_g2o",
     "build_graph",
     "solve",
+    "solve_packed",
 ]

@@ -2,14 +2,18 @@
 
 Usage:
   python -m boslam_torch solve <dataset.g2o> [--gt ground_truth.g2o]
-      [--linear-solver dense|schur] [--optimizer gn|lm] [--iters N]
-      [--device cuda|cpu]
+      [--linear-solver dense|schur|schur_cg] [--packed] [--optimizer gn|lm]
+      [--iters N] [--device cuda|cpu]
   python -m boslam_torch synth --poses 300 --out /tmp/synth.g2o
 
 The solve prints a per-iteration chi2 table.  ``--device`` defaults to
 ``cuda`` and fails on a machine without it.  GN under ``--linear-solver
 schur`` takes the whole-step kernel on the card, the unfused path on the
-CPU.
+CPU.  ``--linear-solver schur_cg`` runs the flat Schur+PCG path;
+``--packed`` the dual-packed Schur+PCG scale path (``solve_packed``), which
+reads the CG, preconditioner, GNC and ``--lm-split`` flags.  The windowed
+gather is set through the API (``SolverConfig(gather="windowed")``), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ def cmd_solve(args) -> int:
     from boslam_torch.graph.build import build_graph
     from boslam_torch.io.g2o import parse_g2o, write_g2o
     from boslam_torch.metrics import ate_metrics, match_gt_landmarks, match_gt_poses
-    from boslam_torch.solver.optimizer import solve
+    from boslam_torch.solver.optimizer import solve, solve_packed
 
     parsed = parse_g2o(args.dataset)
     graph, meta = build_graph(parsed, init=args.init, device=args.device)
@@ -39,7 +43,15 @@ def cmd_solve(args) -> int:
         kernel_threshold=args.kernel_threshold,
         damping=args.damping,
         linear_solver=args.linear_solver,
+        cg_iters=args.cg_iters,
+        cg_tol=args.cg_tol,
+        cg_restarts=args.cg_restarts,
+        cg_warm_start=args.cg_warm_start,
+        preconditioner=args.preconditioner,
+        gnc_kt0=args.gnc_kt0,
+        gnc_anneal_iters=args.gnc_iters,
         reference_kernel_quirk=not args.textbook_kernel,
+        lm_split=args.lm_split,
     )
     print(
         f"loaded {graph.n_poses} poses, {graph.n_landmarks} landmarks, "
@@ -48,7 +60,7 @@ def cmd_solve(args) -> int:
         file=sys.stderr,
     )
     t0 = time.perf_counter()
-    g2, stats = solve(graph, cfg)
+    g2, stats = (solve_packed if args.packed else solve)(graph, cfg)
     if graph.device.type == "cuda":
         torch.cuda.synchronize(graph.device)
     wall = time.perf_counter() - t0
@@ -75,6 +87,15 @@ def cmd_solve(args) -> int:
                   parsed=parsed, fixed_pose_id=meta.fixed_pose_id)
         print(f"optimized state written to {args.out}", file=sys.stderr)
     return 0
+
+
+def _lm_split_arg(value: str):
+    if value == "auto":
+        return value
+    try:
+        return int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected 'auto' or an integer slot cap, got {value!r}")
 
 
 def cmd_synth(args) -> int:
@@ -107,7 +128,24 @@ def main(argv=None) -> int:
     ps.add_argument("--robust", choices=["threshold", "huber", "none"], default="threshold")
     ps.add_argument("--kernel-threshold", type=float, default=1.0)
     ps.add_argument("--damping", type=float, default=0.01)
-    ps.add_argument("--linear-solver", choices=["dense", "schur"], default="dense")
+    ps.add_argument("--linear-solver", choices=["dense", "schur", "schur_cg"], default="dense")
+    ps.add_argument("--packed", action="store_true",
+                    help="dual-packed Schur+PCG layout (the large-scale path)")
+    ps.add_argument("--cg-iters", type=int, default=100)
+    ps.add_argument("--cg-tol", type=float, default=1e-5)
+    ps.add_argument("--cg-restarts", type=int, default=8,
+                    help="Krylov restarts absorbed per CG solve on f32 breakdown events")
+    ps.add_argument("--cg-warm-start", action="store_true",
+                    help="warm-start CG from the previous outer delta (packed)")
+    ps.add_argument("--preconditioner", choices=["auto", "block_jacobi", "btridiag", "bband",
+                                                 "two_level"], default="auto",
+                    help="bband and two_level are not ported yet (packed path)")
+    ps.add_argument("--gnc-kt0", type=float, default=0.0,
+                    help="graduated non-convexity: initial robust threshold (0 = off), "
+                         "annealed to --kernel-threshold over --gnc-iters outers (packed)")
+    ps.add_argument("--gnc-iters", type=int, default=0)
+    ps.add_argument("--lm-split", default="auto", type=_lm_split_arg,
+                    help="packed path: landmark-grid slot cap ('auto' | 0 = off | int cap)")
     ps.add_argument("--textbook-kernel", action="store_true",
                     help="weight H by the robust weight too (no b-side-only quirk)")
     ps.add_argument("--device", choices=["cuda", "cpu"], default="cuda")

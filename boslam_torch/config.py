@@ -2,22 +2,22 @@
 
 Same fields and defaults as the JAX package, so a configuration means the
 same thing in both.  Fields whose code paths the port does not carry yet
-(the CG solvers, the packed layout, GNC, the Cholesky backend choice, f64)
-are kept for that parity; ``check_ported`` rejects any non-default value of
-them, so none is accepted and then ignored.
+(the two_level and bband preconditioners' knobs, bf16 coupling storage,
+the Cholesky backend choice, f64) are kept for that parity;
+``check_ported`` rejects any non-default value of them, so none is
+accepted and then ignored.  As in the JAX package, the packed-path fields
+(GNC, ``cg_warm_start``, ``gather``, ``lm_split``) are read by
+``solve_packed`` only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import torch
+import numpy as np
 
 UNPORTED_FIELDS = frozenset((
-    "gnc_kt0", "gnc_anneal_iters",
-    "cg_iters", "cg_tol", "cg_restarts", "preconditioner", "coarse_q", "two_level_cycle",
-    "band_width", "band_group", "btridiag_block", "cg_warm_start", "matvec_row_chunk",
-    "gather", "coupling_dtype", "lm_split",
+    "coarse_q", "two_level_cycle", "band_width", "band_group", "coupling_dtype",
     "cholesky_backend", "dtype",
 ))
 
@@ -108,17 +108,17 @@ class SolverConfig:
     def gnc_enabled(self) -> bool:
         return self.gnc_kt0 > 0 and self.gnc_anneal_iters > 0
 
-    def kt_at(self, i):
-        """Effective kernel threshold at outer iteration ``i`` (a tensor).
+    def kt_at(self, i: int):
+        """Effective kernel threshold at outer iteration ``i``, a host float.
 
         Geometric interpolation gnc_kt0 -> kernel_threshold over the first
-        ``gnc_anneal_iters`` outers, then the reference threshold exactly.
+        ``gnc_anneal_iters`` outers, then the reference threshold exactly,
+        computed in f32 as the JAX package computes it on its device.
         Returns None when GNC is disabled.
         """
         if not self.gnc_enabled:
             return None
-        i = torch.as_tensor(i, dtype=torch.float32)
-        frac = torch.clamp(1.0 - i / self.gnc_anneal_iters, 0.0, 1.0)
-        ratio = torch.tensor(self.gnc_kt0 / self.kernel_threshold, dtype=torch.float32,
-                             device=i.device)
-        return self.kernel_threshold * torch.pow(ratio, frac)
+        f32 = np.float32
+        frac = np.clip(f32(1.0) - f32(i) / f32(self.gnc_anneal_iters), f32(0.0), f32(1.0))
+        ratio = f32(self.gnc_kt0 / self.kernel_threshold)
+        return float(f32(self.kernel_threshold) * np.power(ratio, frac))

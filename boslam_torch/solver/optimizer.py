@@ -2,10 +2,12 @@
 (port of ``boslam/solver/optimizer.py``).
 
 The loop stays on the device: no ``.item()`` and no host sync inside the
-iterations.  Per-iteration stats are tensors, stacked at the end into one
-tensor per key with a leading ``iters`` axis.  GN under the exact Schur
-solve takes the whole-step path (``ops/gn_step.py``) where
-``_fused_step_applicable`` admits the graph, as the JAX package does.
+iterations, apart from the CG loop's polls (``schur.poll``).  Per-iteration
+stats are tensors, stacked at the end into one tensor per key with a
+leading ``iters`` axis.  GN under the exact Schur solve takes the
+whole-step path (``ops/gn_step.py``) where ``_fused_step_applicable``
+admits the graph, as the JAX package does.  ``solve_packed`` runs the
+dual-packed Schur+PCG scale path (``schur_packed.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from boslam_torch.config import SolverConfig
+from boslam_torch.device import host_sync
 from boslam_torch.geometry.se2 import boxplus_state
 from boslam_torch.graph.data import FactorGraph
 from boslam_torch.solver import gauss_newton as GN
@@ -152,3 +155,73 @@ def solve(graph: FactorGraph, cfg: SolverConfig, lam0: float | None = None):
     lam = torch.full((), cfg.lm_lambda0 if lam0 is None else lam0,
                      dtype=graph.poses.dtype, device=graph.device)
     return solve_loop(graph, cfg, lam0=lam)
+
+
+def packed_solve_loop(graph: FactorGraph, pk, cfg: SolverConfig, lam0: torch.Tensor | None = None,
+                      dp0: torch.Tensor | None = None, start_iter: int = 0):
+    """``cfg.iters`` packed optimizer steps (GN or LM) on the graph's device.
+
+    ``lam0`` restores the LM damping and ``dp0`` the warm-start delta;
+    ``start_iter`` offsets the GNC schedule, whose threshold ``kt_at`` is
+    computed on the host from the iteration index.  ``stats["dp_final"]``
+    is the last outer delta and, under LM, ``stats["lam_final"]`` the next
+    trial's damping; every other stat has a leading ``iters`` axis.
+    """
+    from boslam_torch.solver.schur_packed import packed_gn_step, packed_lm_step
+
+    _check_ported(cfg)
+    if cfg.optimizer not in ("gn", "lm"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    dev = graph.device
+    dp = dp0 if dp0 is not None else torch.zeros((graph.n_poses, 3), dtype=graph.poses.dtype,
+                                                    device=dev)
+    lam = lam0 if lam0 is not None else torch.full((), cfg.lm_lambda0, dtype=graph.poses.dtype,
+                                                    device=dev)
+    g, per_iter = graph, []
+    for i in range(cfg.iters):
+        kt = cfg.kt_at(start_iter + i)
+        if cfg.optimizer == "gn":
+            g, stats, dp = packed_gn_step(g, pk, cfg, dp, kt=kt)
+        else:
+            g, lam, stats, dp = packed_lm_step(g, pk, cfg, lam, dp, kt=kt)
+        per_iter.append(stats)
+    stats = _stack(per_iter)
+    stats["dp_final"] = dp
+    if cfg.optimizer == "lm":
+        stats["lam_final"] = lam
+    return g, stats
+
+
+def solve_packed(graph: FactorGraph, cfg: SolverConfig, lam0: float | None = None,
+                 dp0=None, start_iter: int = 0):
+    """GN or LM on the dual-packed Schur+PCG layout, the large-scale path.
+
+    Packs the edges on the host once (the one wait for the card outside the
+    CG polls), then runs the packed steps on the graph's device.
+    ``gather="windowed"`` relabels the landmarks by mean observing pose,
+    plans windowed gathers for both slot grids and unmaps the landmark
+    order on the way out; "auto" and "take" gather plainly.  ``lam0``
+    restores the LM damping, ``dp0`` the warm-start delta, ``start_iter``
+    the GNC schedule's offset.
+    """
+    from boslam_torch.graph.packed import pack_edges
+
+    if cfg.gather not in ("auto", "take", "windowed"):
+        raise ValueError(f"unknown gather {cfg.gather!r}")
+    use_windows = cfg.gather == "windowed"
+    dev, dtype = graph.device, graph.poses.dtype
+    g_in, inv = graph, None
+    with host_sync(dev):
+        if use_windows:
+            from boslam_torch.graph.reorder import reorder_landmarks_by_pose
+
+            g_in, _perm, inv_np = reorder_landmarks_by_pose(graph)
+            inv = torch.as_tensor(inv_np, device=dev)
+        pk, _meta = pack_edges(g_in, windows=use_windows, split_lm=cfg.lm_split)
+        if dp0 is not None:
+            dp0 = torch.as_tensor(dp0, dtype=dtype, device=dev)
+    lam = torch.full((), cfg.lm_lambda0 if lam0 is None else lam0, dtype=dtype, device=dev)
+    final, stats = packed_solve_loop(g_in, pk, cfg, lam0=lam, dp0=dp0, start_iter=start_iter)
+    if inv is not None:
+        final = graph.with_state(final.poses, final.landmarks[inv])
+    return final, stats

@@ -17,6 +17,14 @@ whole step is also held against its plain version under each robust
 kernel, and driven on a closure graph where the f32 reduced system fails
 at an iterate, where a failed step must keep the state.
 
+Then the scale path: the windowed gather against its plain version, to
+the bit, at the 100k corridor graph's slot grids and on edge cases; GN on
+the dual-packed Schur+PCG path with windowed gathers (solve_packed,
+gather="windowed") on 10k and 100k corridor graphs, its launches held to
+5 + 2 per CG matvec per outer iteration and its chi2 to the CPU run and
+the card's plain-gather run; and, on a 10k default walk whose grids the
+planner refuses, packed GN, packed LM, flat schur_cg and a GNC LM run.
+
 Prints the card, the build, one line per check, then a JSON line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero; it also exits non-zero, before
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -43,6 +52,23 @@ ITERS = 50
 # whole step keeps its state (PERF.md, section 7)
 CLOSURE_SEED = 16
 STALL_SEED = 0  # driven too: a failed step must keep the state
+# The scale path (PERF.md, section 4): corridors of generate_sequence, whose
+# slot grids the windowed planner accepts, and its default walk, whose it
+# refuses.  (n_poses, n_landmarks, seed[, turn_every]).  The 10k corridor is
+# seed 2: on seed 3 the port's own CPU windowed and take runs part by 3.1e-3
+# at iteration 7 (CG at its cap, rel. residual^2 up to 0.3), so no 2e-3
+# bound between two f32 runs holds there (tools/port_packed_scan.py).
+MID = (10000, 3900, 2, 10**9)
+BIG = (100000, 39000, 3, 10**9)
+WALK = (10000, 3900, 3)
+# Iterations held against the CPU run on the walk: 0 at rtol 1e-5 and 1 (the
+# first whole step) at 2e-3.  Past the first step the trace is decided by
+# rounding: two orderings of the same sums on the CPU part by up to 2.7e-3
+# (flat vs packed) and 4.7e-3 (LM, split vs unsplit landmark rows) within
+# 10 iterations (tools/port_packed_scan.py), and on the card the walk's
+# segment sums run with atomics, so the later gaps change from run to run.
+WALK_HELD = 2
+DEV = "cuda"
 
 
 def _card_line() -> str:
@@ -396,6 +422,262 @@ def profile_path(torch, solve, g, cfg, iters=5, top=8):
     )
 
 
+def _corridor(generate_sequence, build_graph, n_poses, n_landmarks, seed, turn_every=50, **kw):
+    """A synthetic graph built on the CPU (the triangulation sums with
+    atomics on the card): (graph on the CPU, meta, ground truth).  A
+    ``turn_every`` past the pose count makes a corridor."""
+    ig, gt = generate_sequence(n_poses, n_landmarks, seed=seed, turn_every=turn_every, **kw)
+    g_cpu, meta = build_graph(ig, init="triangulate", device="cpu")
+    return g_cpu, meta, gt
+
+
+def _card_plan(torch, wg, plan):
+    return wg.WindowPlan(plan.starts.to(DEV), plan.window, plan.tile_rows)
+
+
+def _hold_exact(torch, wg, values, idx, plan, label, valid=None):
+    """The kernel against its plain version on the card: equal to the bit,
+    and on the valid slots equal to values[idx].  Returns max |diff|."""
+    out = wg.windowed_take(values, idx, plan)
+    ref = wg.windowed_take_plain(values, idx, plan)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item() if out.numel() else 0.0
+    if not torch.equal(out, ref):
+        raise AssertionError(f"windowed_take {label}: kernel differs from its plain version "
+                             f"by {err:.3e}")
+    if valid is not None and not torch.equal(out[valid], values[idx][valid]):
+        raise AssertionError(f"windowed_take {label}: a valid slot is not values[idx]")
+    return out, err
+
+
+def check_windowed(torch, wg, pk, n_poses, n_landmarks, rng):
+    """windowed_take at the 100k corridor graph's grids (the pose grid, K 7,
+    C 2 and 4; the landmark grid, K 24, C 3) and on edge cases: 128-row
+    tiles, a window wider than the values, poisoned and -1 slots.  Every
+    result must equal the plain version to the bit.  Returns the rows."""
+    rows = {}
+    for name, idx_c, omega, plan_c, M, chans in (
+            ("pose grid", pk.p_lm, pk.p_omega, pk.p_plan, n_landmarks, (2, 4)),
+            ("landmark grid", pk.l_pose, pk.l_omega, pk.l_plan, n_poses, (3,))):
+        idx, valid, plan = idx_c.to(DEV), (omega > 0).to(DEV), _card_plan(torch, wg, plan_c)
+        R, K = idx.shape
+        for C in chans:
+            values = torch.from_numpy(rng.standard_normal((M, C)).astype(np.float32)).to(DEV)
+            _, err = _hold_exact(torch, wg, values, idx, plan, f"{name} C={C}", valid)
+            ms = _cuda_ms(torch, lambda: wg.windowed_take(values, idx, plan))
+            plain_ms = _cuda_ms(torch, lambda: wg.windowed_take_plain(values, idx, plan), reps=5)
+            lib_ms = _cuda_ms(torch, lambda: values[idx])
+            # idx, values and the output, each once; no arithmetic to speak of
+            nbytes = 4 * (R * K + M * C + R * K * C)
+            bound, by = _bound_ms(0.0, nbytes)
+            r = dict(shape=[R, K, C], values_rows=M, window=plan.window, tile_rows=plan.tile_rows,
+                     n_tiles=plan.n_tiles, last_tile_rows=R - (plan.n_tiles - 1) * plan.tile_rows,
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     library_ms=lib_ms, bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
+            print(f"windowed_take {name} C={C}: " + json.dumps(r))
+            rows[(name, C)] = r
+
+    # edge cases: 128-row tiles (landmark grid), window > M, poisoned slots
+    edges = {}
+    lp = pk.l_pose.numpy()
+    plan128 = wg.plan_windows(lp, pk.l_omega.numpy() > 0, n_poses, tile_rows=128, device=DEV)
+    if plan128 is None or plan128.tile_rows != 128:
+        raise AssertionError("windowed_take: no 128-row plan for the landmark grid")
+    values = torch.from_numpy(rng.standard_normal((n_poses, 3)).astype(np.float32)).to(DEV)
+    idx = pk.l_pose.to(DEV)
+    edges["tile_rows_128"] = _hold_exact(torch, wg, values, idx, plan128, "128-row tiles",
+                                         (pk.l_omega > 0).to(DEV))[1]
+    M, R, K = 90, 1001, 5
+    idx_s = rng.integers(0, M, (R, K)).astype(np.int32)
+    plan_s = wg.plan_windows(idx_s, np.ones((R, K), bool), M, device=DEV)
+    if not (plan_s.window > M and R % plan_s.tile_rows):
+        raise AssertionError(f"windowed_take: window {plan_s.window} vs M {M}, R {R}")
+    for C in (2, 3, 4):
+        vals = torch.from_numpy(rng.standard_normal((M, C)).astype(np.float32)).to(DEV)
+        edges[f"window_past_values_C{C}"] = _hold_exact(
+            torch, wg, vals, torch.from_numpy(idx_s).to(DEV), plan_s, f"window > M, C={C}",
+            torch.ones((R, K), dtype=torch.bool, device=DEV))[1]
+    plan_l = _card_plan(torch, wg, pk.l_plan)
+    poisoned = pk.l_pose.clone()
+    start0 = int(pk.l_plan.starts[0])
+    poisoned[3, 1] = start0 + pk.l_plan.window + 7  # past tile 0's window
+    poisoned[5, 2] = -1
+    out, edges["poisoned"] = _hold_exact(torch, wg, values, poisoned.to(DEV), plan_l, "poisoned")
+    if not (bool((out[3, 1] == 0).all()) and bool((out[5, 2] == 0).all())):
+        raise AssertionError("windowed_take: a poisoned slot did not give zeros")
+    print("windowed_take edge cases: " + json.dumps(dict(
+        max_abs_err=edges, tile_rows_128_tiles=plan128.n_tiles, window_past_values=[plan_s.window, M],
+        ragged_last_tile=[R, plan_s.tile_rows])))
+    return rows
+
+
+def _packed_launches(st, optimizer):
+    """Windowed-gather launches the packed path makes: 5 + 2 per matvec per
+    GN outer iteration (2 in the build, the rhs, diag(S), the
+    back-substitution), one more per LM trial (its cost check)."""
+    per = 5 + (1 if optimizer == "lm" else 0)
+    return int(sum(per + 2 * int(m) for m in st["cg_matvecs"]))
+
+
+def _rel_trace(c, ref):
+    return np.abs(np.asarray(c, np.float64) - ref) / np.abs(np.asarray(ref, np.float64))
+
+
+def _hold_trace(c, ref, held, label, what):
+    """chi2 at iteration 0 within rtol 1e-5 and iterations 1..held-1 within 2e-3."""
+    rel = _rel_trace(c, ref)
+    if not (np.isfinite(c).all() and rel[0] < 1e-5 and (rel[1:held] < 2e-3).all()):
+        raise AssertionError(f"{label}: chi2 {c.tolist()} vs {what} {np.asarray(ref).tolist()} "
+                             f"(rel {rel.tolist()}, held {held})")
+    return rel
+
+
+def run_packed(torch, solve, g, cfg, counters, label, windowed):
+    """One packed or flat CG path on the card with every count at 0: checks
+    the windowed launches against the formula (0 when not ``windowed``)."""
+    g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
+    want = {k: 0 for k in counters}
+    if windowed:
+        want["windowed_take"] = _packed_launches(st, cfg.optimizer)
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return g2, st, counts, secs
+
+
+def _cg_summary(st, cfg, secs):
+    iters = cfg.iters
+    return dict(ms_per_outer=secs / iters * 1e3, cg_iters=st["cg_iters"].tolist(),
+                sum_cg_iters=int(st["cg_iters"].sum()), sum_matvecs=int(st["cg_matvecs"].sum()),
+                polls_per_outer=float(st["cg_polls"].mean()),
+                breakdowns=int(st["cg_breakdown"].sum()))
+
+
+def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph, SolverConfig):
+    """Slice 3: windowed_take at the 100k grids, then the packed Schur+PCG
+    path with windowed gathers at 10k and 100k corridor poses, and the
+    packed-take, LM, flat CG and GNC runs on the default walk, whose plans
+    the planner refuses.  Returns (the kernel's row, its launches on the
+    packed-windowed runs)."""
+    from boslam_torch.graph.packed import pack_edges
+    from boslam_torch.graph.reorder import reorder_landmarks_by_pose
+    from boslam_torch.metrics import ate_metrics, match_gt_poses
+    from boslam_torch.solver.optimizer import solve_packed
+
+    def windowed_packing(g_cpu):
+        return pack_edges(reorder_landmarks_by_pose(g_cpu)[0], windows=True)
+
+    # ---- phase 1: the kernel at the 100k corridor's grids, and edge cases ----
+    t0 = time.perf_counter()
+    g100_cpu, _, _ = _corridor(generate_sequence, build_graph, *BIG)
+    pk100, meta100 = windowed_packing(g100_cpu)
+    if not meta100.windowed or meta100.n_virt_rows is not None:
+        raise AssertionError(f"100k corridor: {meta100}")
+    rows = check_windowed(torch, wg, pk100, g100_cpu.n_poses, g100_cpu.n_landmarks,
+                          np.random.default_rng(1))
+    print(f"phase windowed_take: {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- phase 2: packed-windowed 10k corridor, GN, "auto" = btridiag ----
+    t0 = time.perf_counter()
+    g_cpu, meta, gt = _corridor(generate_sequence, build_graph, *MID)
+    g = g_cpu.to(DEV)
+    _, pmeta = windowed_packing(g_cpu)
+    if not pmeta.windowed or pmeta.n_virt_rows is not None:
+        raise AssertionError(f"10k corridor: {pmeta}")
+    cfg = SolverConfig(linear_solver="schur_cg", gather="windowed", iters=10)
+    st_cpu = _stats(solve_packed(g_cpu, cfg)[1])
+    g2, st, counts, secs = run_packed(torch, solve_packed, g, cfg, counters, "packed-windowed 10k",
+                                      True)
+    launches = counts["windowed_take"]
+    c = st["chi2_robust"]
+    rel_cpu = _hold_trace(c, st_cpu["chi2_robust"], cfg.iters, "packed-windowed 10k", "CPU")
+    _, st_t, _, secs_t = run_packed(torch, solve_packed, g, cfg.replace(gather="take"), counters,
+                                    "packed-take 10k corridor", False)
+    rel_take = _hold_trace(c, st_t["chi2_robust"], cfg.iters, "packed-windowed 10k", "take run")
+    g3, st2, _, secs2 = run_packed(torch, solve_packed, g, cfg, counters,
+                                   "packed-windowed 10k repeat", True)
+    bitwise = bool(np.array_equal(st2["chi2_robust"], c) and torch.equal(g3.poses, g2.poses)
+                   and torch.equal(g3.landmarks, g2.landmarks))
+    ate = ate_metrics(g2.poses.cpu().numpy(), match_gt_poses(meta, gt))
+    prof = profile_path(torch, solve_packed, g, cfg, iters=1)
+    print("packed-windowed 10k: " + json.dumps(dict(
+        graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry], seed=MID[2],
+        launches=counts["windowed_take"], launches_expected=_packed_launches(st, "gn"),
+        chi2_first=float(c[0]), chi2_last=float(c[-1]), chi2_last_cpu=float(st_cpu["chi2_robust"][-1]),
+        rel_vs_cpu=rel_cpu.tolist(), rel_vs_take=rel_take.tolist(),
+        matvecs_wasted_by_masking=int(st["cg_matvecs"].sum() - st["cg_iters"].sum()),
+        ms_per_outer_first_run=secs / cfg.iters * 1e3, ms_per_outer_take=secs_t / cfg.iters * 1e3,
+        bitwise_repeat=bitwise, ate_rmse_aligned=ate["ate_rmse_aligned"],
+        device_busy_share=prof["device_busy_share"], profile=prof, **_cg_summary(st2, cfg, secs2))))
+    print(f"phase packed-windowed 10k: {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- phase 3: packed-windowed 100k corridor, GN, "auto" = block-Jacobi ----
+    t0 = time.perf_counter()
+    g = g100_cpu.to(DEV)
+    cfg = SolverConfig(linear_solver="schur_cg", gather="windowed", iters=5)
+    torch.cuda.reset_peak_memory_stats()
+    g2, st, counts, secs = run_packed(torch, solve_packed, g, cfg, counters, "packed-windowed 100k",
+                                      True)
+    peak = torch.cuda.max_memory_allocated()
+    launches += counts["windowed_take"]
+    _, st_t, _, secs_t = run_packed(torch, solve_packed, g, cfg.replace(gather="take"), counters,
+                                    "packed-take 100k", False)
+    # CG breaks down in every outer iteration here (block-Jacobi, as in the
+    # JAX package): the trace after iteration 0 is not reproducible under a
+    # change of summation order (PERF.md), so only iteration 0 is held
+    c = st["chi2_robust"]
+    rel_take = _hold_trace(c, st_t["chi2_robust"], 1, "packed-windowed 100k", "take run")
+    if not c[-1] < c[0]:
+        raise AssertionError(f"packed-windowed 100k: chi2 {c.tolist()} did not descend")
+    print("packed-windowed 100k: " + json.dumps(dict(
+        graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry], seed=BIG[2],
+        launches=counts["windowed_take"], launches_expected=_packed_launches(st, "gn"),
+        chi2=c.tolist(), chi2_take=st_t["chi2_robust"].tolist(), rel_vs_take=rel_take.tolist(),
+        breakdown=st["cg_breakdown"].tolist(), breakdown_take=st_t["cg_breakdown"].tolist(),
+        ms_per_outer_take=secs_t / cfg.iters * 1e3, max_memory_allocated=peak,
+        **_cg_summary(st, cfg, secs))))
+    del g, g2, g100_cpu, pk100
+    print(f"phase packed-windowed 100k: {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- phase 4: the default walk (plans refused): packed GN, LM, flat CG, GNC ----
+    t0 = time.perf_counter()
+    g_cpu, _, _ = _corridor(generate_sequence, build_graph, *WALK)
+    g = g_cpu.to(DEV)
+    wpk, wmeta = windowed_packing(g_cpu)
+    if wmeta.windowed or wpk.p_plan is not None or wpk.l_plan is not None:
+        raise AssertionError(f"default walk: the planner did not refuse both grids ({wmeta})")
+    for label, fn, cfg in (
+            ("packed-take 10k walk (windowed asked, refused)", solve_packed,
+             SolverConfig(linear_solver="schur_cg", gather="windowed", iters=10)),
+            ("packed-take LM 10k walk", solve_packed,
+             SolverConfig(linear_solver="schur_cg", optimizer="lm", iters=10)),
+            ("flat schur_cg 10k walk", solve, SolverConfig(linear_solver="schur_cg", iters=10))):
+        st_cpu = _stats(fn(g_cpu, cfg)[1])
+        _, st, counts, secs = run_packed(torch, fn, g, cfg, counters, label, False)
+        c = st["chi2_robust"]
+        rel = _hold_trace(c, st_cpu["chi2_robust"], WALK_HELD, label, "CPU")
+        if not c[-1] < c[0]:
+            raise AssertionError(f"{label}: chi2 {c.tolist()} did not descend")
+        print(f"{label}: " + json.dumps(dict(
+            launches=counts, held_iterations=WALK_HELD, rel_vs_cpu=rel.tolist(),
+            chi2_first=float(st["chi2_robust"][0]), chi2_last=float(st["chi2_robust"][-1]),
+            accepted=st["accepted"].astype(int).tolist(), **_cg_summary(st, cfg, secs))))
+    g_cpu, _, _ = _corridor(generate_sequence, build_graph, *WALK, loop_closures=8)
+    g = g_cpu.to(DEV)
+    cfg = SolverConfig(linear_solver="schur_cg", optimizer="lm", iters=10, gnc_kt0=100.0,
+                       gnc_anneal_iters=6)
+    _, st, counts, secs = run_packed(torch, solve_packed, g, cfg, counters, "GNC LM 8 closures",
+                                     False)
+    kt_host = np.array([cfg.kt_at(i) for i in range(cfg.iters)], np.float32)
+    if not (np.isfinite(st["chi2_robust"]).all() and np.array_equal(st["kt"], kt_host)):
+        raise AssertionError(f"GNC LM: chi2 {st['chi2_robust'].tolist()}, kt {st['kt'].tolist()} "
+                             f"vs {kt_host.tolist()}")
+    print("GNC LM 10k walk 8 loop closures: " + json.dumps(dict(
+        launches=counts, kt=st["kt"].tolist(), chi2=st["chi2_robust"].tolist(),
+        accepted=st["accepted"].astype(int).tolist(), **_cg_summary(st, cfg, secs))))
+    print(f"phase default walk: {time.perf_counter() - t0:.1f} s wall")
+    return rows[("landmark grid", 3)], launches
+
+
 def main() -> int:
     import torch
 
@@ -411,11 +693,15 @@ def main() -> int:
     from boslam_torch.ops import cholesky as chol
     from boslam_torch.ops import gn_step as gs
     from boslam_torch.ops import schur_solve as ss
+    from boslam_torch.ops import windowed_gather as wg
     from boslam_torch.solver import schur
     from boslam_torch.solver.gauss_newton import gauge_mask
     from boslam_torch.solver.normal_eq import assemble_dense, edge_terms
     from boslam_torch.solver.optimizer import solve
     from boslam_torch.synth import generate_sequence
+
+    # single-observation landmarks of the large graphs are logged one by one
+    logging.getLogger("boslam_torch.init").setLevel(logging.ERROR)
 
     card = _card_line()
     print(f"card: {card}")
@@ -487,7 +773,7 @@ def main() -> int:
     del g_cap
 
     counters = {"cholesky": chol.cholesky_solve_padded, "schur": ss.fused_schur_solve_blocks,
-                "gn_step": gs.fused_gn_step}
+                "gn_step": gs.fused_gn_step, "windowed_take": wg.windowed_take}
 
     # ---- gn-schur: GN under the exact Schur solve, the whole-step kernel off ----
     st_cpu = _stats(solve(g_cpu, cfg_s)[1])
@@ -553,6 +839,9 @@ def main() -> int:
     for label, cfg in (("gn-schur", cfg_s), ("gn-dense", cfg_d), ("gn-fused", cfg_f)):
         print(f"profile {label}: " + json.dumps(profile_path(torch, solve, g, cfg)))
 
+    win_row, win_launches = run_scale_phases(torch, wg, counters, solve, generate_sequence,
+                                             build_graph, SolverConfig)
+
     kernels = [
         dict(name="cholesky_solve_padded", route="cuda",
              source="boslam_torch/ops/csrc/cholesky.cu",
@@ -573,6 +862,12 @@ def main() -> int:
              max_abs_err=gn_main["max_abs_err"], ms=gn_main["ms"], plain_ms=gn_main["plain_ms"],
              bound_ms=gn_main["bound_ms"], bound_by=gn_main["bound_by"], library_ms=None,
              shape=gn_main["shape"], path="gn-fused"),
+        dict(name="windowed_take", route="cuda", source="boslam_torch/ops/csrc/windowed_gather.cu",
+             replaces="boslam/ops/windowed_gather.py:157", launches=win_launches,
+             max_abs_err=win_row["max_abs_err"], ms=win_row["ms"], plain_ms=win_row["plain_ms"],
+             bound_ms=win_row["bound_ms"], bound_by=win_row["bound_by"],
+             library_ms=win_row["library_ms"], shape=win_row["shape"],
+             path="packed-windowed 10k + 100k (landmark grid of the 100k corridor)"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

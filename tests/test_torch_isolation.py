@@ -15,7 +15,9 @@ _PROBE = """
 import sys
 import boslam_torch, boslam_torch.cli, boslam_torch.metrics, boslam_torch.synth
 import boslam_torch.ops.cholesky, boslam_torch.ops.schur_solve, boslam_torch.solver.optimizer
-import boslam_torch.ops.gn_step
+import boslam_torch.ops.gn_step, boslam_torch.ops.windowed_gather
+import boslam_torch.graph.packed, boslam_torch.graph.reorder
+import boslam_torch.solver.btridiag, boslam_torch.solver.schur_packed
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "boslam" or m.startswith("boslam."))
