@@ -1,12 +1,16 @@
 """Blocked Cholesky solve H x = b: the port of ``boslam/ops/pallas_cholesky.py``.
 
 ``cholesky_solve_padded`` launches the hand-written CUDA kernel
-(``csrc/cholesky.cu``, ``csrc/cholesky.cuh``) for a CUDA tensor and runs
-its plain PyTorch version, ``cholesky_solve_padded_plain``, for a CPU
-tensor.  Both follow the same right-looking blocked algorithm over 64x64
-tiles: factor the diagonal tile, invert it, solve the panel below it as a
-product with the inverse, update the trailing lower tiles, then forward
-and backward substitution through the tile inverses.
+(``csrc/cholesky.cu``, ``csrc/cholesky.cuh``: one cooperative launch per
+solve) for a CUDA tensor and runs its plain PyTorch version,
+``cholesky_solve_padded_plain``, for a CPU tensor.  Both follow the same
+right-looking blocked algorithm over ``TILE`` x ``TILE`` tiles: factor the
+diagonal tile, invert it, solve the panel below it as a product with the
+inverse, update the trailing lower tiles, then forward and backward
+substitution through the tile inverses.  The plain version inverts a tile
+by recursive block inversion (``tri_inv``, the twin of the JAX package's
+``_tri_inv``); the kernel, whose tile is one warp wide, by a substitution
+per lane.
 
 The factorization runs on a working copy that the wrapper allocates, so
 ``H`` is left as it was.  A non-positive pivot yields NaN, which
@@ -20,7 +24,8 @@ import torch
 from boslam_torch.ops import _build
 
 B = 128  # padding unit of the public functions (the JAX package's tile)
-TILE = 64  # tile of the blocked algorithm
+TILE = 32  # tile of the blocked algorithm: chol::TILE in csrc/cholesky.cuh
+BASE = 8  # base block of tri_inv, as in _tri_inv
 MAX_VMEM_DIM = 13 * B  # 1664: size gate kept from the JAX package
 
 
@@ -34,15 +39,46 @@ def _factor_tile(A: torch.Tensor) -> torch.Tensor:
     return torch.where(info == 0, L, torch.full_like(L, float("nan")))
 
 
+def _diag_blocks(L: torch.Tensor, h: int) -> torch.Tensor:
+    """[n/h, h, h] diagonal h-blocks of an (n, n) matrix."""
+    m = L.shape[0] // h
+    return L.reshape(m, h, m, h).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+
+
+def tri_inv(L: torch.Tensor) -> torch.Tensor:
+    """Inverse of a lower-triangular (n, n) tile, n = BASE * 2^k.
+
+    Recursive block inversion, inv [[A, 0], [B, C]] = [[A^-1, 0],
+    [-C^-1 B A^-1, C^-1]], run bottom-up with all blocks of a level at
+    once; the BASE x BASE blocks are inverted by forward substitution row
+    by row, each sum taken in the order ``_tri_inv`` takes it.
+    """
+    n = L.shape[0]
+    h = BASE
+    Lb = _diag_blocks(L, h)
+    # row j of X = (e_j - sum_k<j L_jk X_k) / L_jj, each sum taken in k order
+    X = torch.eye(h, dtype=L.dtype, device=L.device).repeat(Lb.shape[0], 1, 1)
+    for j in range(h):
+        X[:, j] /= Lb[:, j, j, None]
+        X[:, j + 1:] -= Lb[:, j + 1:, j, None] * X[:, None, j]
+    while h < n:
+        A, C = X[0::2], X[1::2]
+        Bl = _diag_blocks(L, 2 * h)[:, h:, :h]
+        top = torch.cat([A, torch.zeros_like(A)], dim=2)
+        bot = torch.cat([-(C @ (Bl @ A)), C], dim=2)
+        X = torch.cat([top, bot], dim=1)
+        h *= 2
+    return X[0]
+
+
 def blocked_factor(L: torch.Tensor):
     """Factor L (lower triangle, in place) tile by tile; returns tile inverses."""
     n = L.shape[0]
-    eye = torch.eye(TILE, dtype=L.dtype, device=L.device)
     inverses = []
     for k0 in range(0, n, TILE):
         k1 = k0 + TILE
         Lkk = _factor_tile(L[k0:k1, k0:k1])
-        Linv = torch.linalg.solve_triangular(Lkk, eye, upper=False)
+        Linv = tri_inv(Lkk)
         inverses.append(Linv)
         L[k0:k1, k0:k1] = Lkk
         if k1 < n:
@@ -105,9 +141,9 @@ def cholesky_solve_padded(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Linv = torch.empty((n // TILE, TILE, TILE), dtype=H.dtype, device=H.device)
     y = torch.empty_like(b)
     x = torch.empty_like(b)
+    p = _build.ptr
     err = lib.boslam_cholesky_solve(
-        _build.ptr(L), _build.ptr(Linv), _build.ptr(b), _build.ptr(y), _build.ptr(x),
-        n, torch.cuda.current_stream(H.device).cuda_stream,
+        p(L), p(Linv), p(b), p(y), p(x), n, torch.cuda.current_stream(H.device).cuda_stream,
     )
     cholesky_solve_padded.launches += 1
     _build.check(lib, err, "cholesky_solve_padded")

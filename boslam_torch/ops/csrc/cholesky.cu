@@ -7,12 +7,11 @@
 extern "C" {
 
 // L: n*n floats holding H on entry (a working copy; factored in place).
-// Linv: (n/64)*64*64 floats, y: n floats of scratch.  n % 64 == 0.
-// Returns the cudaError_t of the first launch that failed, else 0.
-int boslam_cholesky_solve(float *L, float *Linv, const float *b, float *y, float *x,
-                          int n, void *stream) {
-  return (int)boslam::cholesky_factor_solve(L, Linv, b, y, x, nullptr, n,
-                                            (cudaStream_t)stream);
+// Linv: n * chol::TILE floats, y: n floats of scratch.  n % chol::TILE == 0.
+// One cooperative launch; returns its cudaError_t, else 0.
+int boslam_cholesky_solve(float *L, float *Linv, const float *b, float *y, float *x, int n,
+                          void *stream) {
+  return (int)boslam::cholesky_factor_solve(L, Linv, b, y, x, nullptr, n, (cudaStream_t)stream);
 }
 
 const char *boslam_error_string(int err) {

@@ -34,8 +34,9 @@
 // needs ~2e6 FMAs when the sparsity of U and the envelope of S are counted,
 // and the dense algorithm here does ~4e8 (the Np^3/6 Cholesky and the
 // lower half of W U^T): under 12 us at the f32 CUDA-core peak either way,
-// and the inputs are ~60 KB.  The pipeline is latency-bound: 2 Np/64 + 7
-// dependent launches, the Cholesky panel chain the longest part.  The
+// and the inputs are ~60 KB.  The pipeline is latency-bound: 8 dependent
+// launches, the longest the Cholesky's one cooperative launch of 2 Np/32 - 1
+// grid-barrier phases (cholesky.cuh).  The
 // design keeps the whole iteration in one host call, so the host never
 // holds the card back, and every launch simple; all arithmetic is f32 FMA
 // on the CUDA cores, never TF32.

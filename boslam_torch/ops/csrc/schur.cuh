@@ -21,6 +21,10 @@
 
 namespace boslam {
 
+// The stage kernels' own tiling, independent of the factorization's tile.
+constexpr int T = 64;     // tile edge of the S GEMM and the dl reduction
+constexpr int NT = 256;   // threads per block of the S GEMM
+constexpr int SOLVE_THREADS = 1024;
 constexpr int KC = 32;  // depth of one GEMM stage
 
 // W[r, 2l + c] = U[r, 2l] Hb[l, 0, c] + U[r, 2l + 1] Hb[l, 1, c]

@@ -16,7 +16,8 @@
 //
 // What bounds it on the H100: the Np^3/6 FMA Cholesky and the Np^2 Ml / 2
 // FMA product W U^T (Np = 1024, Ml = 384: 0.18 + 0.20 GFMA, ~11 us at the
-// f32 CUDA-core peak), behind 2 Np/64 + 4 dependent launches.  As in
+// f32 CUDA-core peak), behind 5 dependent launches, the Cholesky one
+// cooperative launch of 2 Np/32 - 1 grid-barrier phases.  As in
 // cholesky.cuh the design is latency-bound at these sizes; the GEMM skips
 // the upper tiles (the factorization reads only the lower triangle) and
 // all arithmetic is f32 FMA on the CUDA cores, never TF32.
@@ -30,7 +31,7 @@ extern "C" {
 
 // Inputs: Hpp [np,np], U [np,ml], Hb [ml/2,2,2], bp [np], bl [ml], mask [np],
 // lam [1] (device scalar).  Scratch: W [np,ml], S [np,np], Linv
-// [(np/64)*64*64], rhs [np], y [np].  Outputs: x [np], dl [ml].
+// [np * chol::TILE], rhs [np], y [np].  Outputs: x [np], dl [ml].
 // np % 64 == 0, ml % 64 == 0.  Returns the first failed launch's error, else 0.
 int boslam_schur_solve(const float *Hpp, const float *U, const float *Hb, const float *bp,
                        const float *bl, const float *mask, const float *lam, float *W,

@@ -13,7 +13,7 @@ the windows would be wider than ``max_window`` (the caller then gathers
 plainly; that is the JAX package's per-grid design).
 
 ``windowed_take`` launches the hand-written CUDA kernel
-(``csrc/windowed_gather.cu``, one block per row tile) for a CUDA tensor and
+(``csrc/windowed_gather.cu``, one thread per slot) for a CUDA tensor and
 runs the plain PyTorch version, ``windowed_take_plain``, for a CPU tensor.
 """
 
@@ -131,8 +131,10 @@ def windowed_take(values: torch.Tensor, idx: torch.Tensor, plan: WindowPlan) -> 
     _check(values, idx, plan)
     if not values.is_cuda:
         return windowed_take_plain(values, idx, plan)
-    lib = _lib()
     (M, C), (R, K) = values.shape, idx.shape
+    if C != 3 and values.data_ptr() % (4 * C):
+        raise ValueError(f"values must be {4 * C}-byte aligned for C = {C} (one vector load)")
+    lib = _lib()
     out = torch.empty((R, K, C), dtype=values.dtype, device=values.device)
     p = _build.ptr
     err = lib.boslam_windowed_take(

@@ -5,8 +5,11 @@
 
 Builds the hand-written CUDA kernels from the sources in this checkout
 (boslam_torch/ops/csrc, into build/boslam_torch_kernels/), holds each
-kernel against its plain PyTorch version and an f64 solve on the card,
-times them, then drives the port's paths at the reference dataset's size:
+kernel against its plain PyTorch version and an f64 solve on the card (the
+Cholesky at every size a path gives it, 1024 to 1664, and at 2048, and on
+a system whose last pivot is negative), times each beside its library call (medians of interleaved
+rounds; the gather as CUDA-graph replays) and counts its launches per
+call, then drives the port's paths at the reference dataset's size:
 GN under the exact Schur solve with the whole-step kernel off (gn-schur)
 for 50 iterations, GN under the dense solve for 50, LM under the Schur
 solve for 10, and the main path, GN under the exact Schur solve with the
@@ -79,18 +82,73 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(torch, fn, reps=20, warmup=3) -> float:
-    """Mean time of ``fn`` on the card by CUDA events, after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def _time_ms(torch, fns, reps=20, rounds=5, graph=False) -> dict:
+    """{name: median ms} of each ``fns[name]`` on the card by CUDA events.
+
+    A round times each function once, in turn, as the mean of ``reps``
+    calls (an int, or {name: int}); the median over ``rounds`` rounds is
+    returned, so the functions are compared inside one window of the card's
+    clocks.  With ``graph`` the ``reps`` calls are captured once in a CUDA
+    graph and the graph is replayed: the time is then the device's, not the
+    host's enqueue rate, which bounds a call of a few microseconds."""
+    reps = reps if isinstance(reps, dict) else {k: reps for k in fns}
+    run = {}
+    for k, fn in fns.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        if graph:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(reps[k]):
+                    fn()
+            run[k] = (g.replay, 1)
+        else:
+            run[k] = (fn, reps[k])
+    times = {k: [] for k in fns}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    for _ in range(rounds):
+        for k, (fn, n) in run.items():
+            fn()
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end) / reps[k])
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+# the port's kernels, by the names the profiler gives them
+PORT_KERNELS = ("chol_solve_kernel", "schur_w_kernel", "schur_s_kernel", "schur_rhs_kernel",
+                "schur_dl_kernel", "gn_edge_kernel", "gn_assemble_kernel", "gn_finish_kernel",
+                "windowed_take_kernel")
+
+
+def _launches_per_call(torch, fn) -> int:
+    """Kernel launches of the port that one call of ``fn`` makes, by the
+    profiler's device events.  Count before the first ``profile_path``: a
+    short session after those records no device events on this card.  A
+    session before them can come back empty too (no device event at all,
+    seen once in 20 sessions on the H100); an empty session is no count, so
+    it is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+        print(f"launches per call: session {attempt} recorded no device events")
+    n = sum(1 for name in names if any(k in name for k in PORT_KERNELS))
+    if n == 0:
+        print(f"launches per call: no kernel of the port among the device events {names}")
+    return n
 
 
 def _bound_ms(fmas: float, nbytes: float) -> tuple[float, str]:
@@ -124,16 +182,31 @@ def check_cholesky(torch, chol, H, b, label):
     if not torch.isfinite(x_k).all():
         raise AssertionError(f"cholesky {label}: non-finite kernel result")
     _check_error(f"cholesky {label}", err_k, err_p)
-    ms = _cuda_ms(torch, lambda: chol.cholesky_solve_padded(H, b))
-    plain_ms = _cuda_ms(torch, lambda: chol.cholesky_solve_padded_plain(H, b), reps=5)
-    lib_ms = _cuda_ms(torch, lambda: torch.cholesky_solve(b[:, None], torch.linalg.cholesky(H)))
+    if not torch.equal(chol.cholesky_solve_padded(H, b), x_k):
+        raise AssertionError(f"cholesky {label}: a second solve gives other bits")
+    t = _time_ms(torch, {
+        "kernel": lambda: chol.cholesky_solve_padded(H, b),
+        "library": lambda: torch.cholesky_solve(b[:, None], torch.linalg.cholesky(H))})
+    plain_ms = _time_ms(torch, {"plain": lambda: chol.cholesky_solve_padded_plain(H, b)},
+                        reps=3, rounds=3)["plain"]
     # factorization n^3/6 FMAs, two triangular solves n^2/2 each
     bound, by = _bound_ms(n**3 / 6 + n * n, 4 * (n * n + 2 * n))
-    r = dict(shape=[n], max_abs_err=(x_k - x_p).abs().max().item(), err_vs_f64=err_k,
-             plain_err_vs_f64=err_p, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-             library_ms=lib_ms)
+    r = dict(shape=[n], tile=chol.TILE, max_abs_err=(x_k - x_p).abs().max().item(),
+             err_vs_f64=err_k, plain_err_vs_f64=err_p, ms=t["kernel"], plain_ms=plain_ms,
+             bound_ms=bound, bound_by=by, library_ms=t["library"],
+             vs_library=t["kernel"] / t["library"])
     print(f"cholesky {label} n={n}: " + json.dumps(r))
     return r
+
+
+def check_cholesky_not_spd(torch, chol, n, rng):
+    """A negative pivot in the last tile: x must come out non-finite."""
+    H = torch.from_numpy(_spd(n, rng)).cuda()
+    H[n - 1, n - 1] = -1.0
+    b = torch.ones(n, device="cuda")
+    if torch.isfinite(chol.cholesky_solve_padded(H, b)).all():
+        raise AssertionError(f"cholesky not SPD (last tile, n={n}): finite result")
+    print(f"cholesky not SPD, bad pivot in the last tile, n={n}: x non-finite")
 
 
 def _schur_f64(torch, Hpp, U, Hb, bp, bl, m, lam):
@@ -164,11 +237,14 @@ def check_schur(torch, ss, inputs, lam, label):
     err_k = max((x_k.double() - x64).abs().max().item(), (dl_k.double() - dl64).abs().max().item())
     err_p = max((x_p.double() - x64).abs().max().item(), (dl_p.double() - dl64).abs().max().item())
     _check_error(f"schur {label}", err_k, err_p)
-    ms = _cuda_ms(torch, lambda: ss.fused_schur_solve_blocks(*inputs, lam))
-    plain_ms = _cuda_ms(torch, lambda: ss.fused_schur_solve_blocks_plain(*inputs, lam), reps=5)
     # the Cholesky share of the work, by the library, as a yardstick only
     S = torch.eye(Np, device=inputs[0].device) * 4.0
-    chol_lib_ms = _cuda_ms(torch, lambda: torch.cholesky_solve(inputs[3][:, None], torch.linalg.cholesky(S)))
+    t = _time_ms(torch, {
+        "kernel": lambda: ss.fused_schur_solve_blocks(*inputs, lam),
+        "chol_library": lambda: torch.cholesky_solve(inputs[3][:, None], torch.linalg.cholesky(S))})
+    ms, chol_lib_ms = t["kernel"], t["chol_library"]
+    plain_ms = _time_ms(torch, {"plain": lambda: ss.fused_schur_solve_blocks_plain(*inputs, lam)},
+                        reps=3, rounds=3)["plain"]
     # W, the lower triangle of W U^T, rhs, the factorization (Np^3/6), the
     # two triangular solves (Np^2/2 each), U^T x and the 2x2 block apply
     fmas = 2 * Np * Ml + Np * (Np + 1) / 2 * Ml + Np * Ml + Np**3 / 6 + Np * Np + Np * Ml + 2 * Ml
@@ -178,7 +254,9 @@ def check_schur(torch, ss, inputs, lam, label):
     err = max((x_k - x_p).abs().max().item(), (dl_k - dl_p).abs().max().item())
     r = dict(shape=[Np, Ml], max_abs_err=err, err_vs_f64=err_k, plain_err_vs_f64=err_p, ms=ms,
              plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-             cholesky_only_library_ms=chol_lib_ms)
+             cholesky_only_library_ms=chol_lib_ms,
+             launches_per_call=_launches_per_call(
+                 torch, lambda: ss.fused_schur_solve_blocks(*inputs, lam)))
     print(f"schur {label} Np={Np} Ml={Ml}: " + json.dumps(r))
     return r
 
@@ -266,8 +344,9 @@ def check_gn_step(torch, gs, g, cfg, label):
     if not err64["kernel"] <= 2.0 * max(v for k, v in err64.items() if k != "kernel"):
         raise AssertionError(f"gn_step {label}: kernel-plain {max_abs_err:.3e}, unfused-plain "
                              f"{gap:.3e}, vs f64 {err64}")
-    ms = _cuda_ms(torch, lambda: kern.step(row))
-    plain_ms = _cuda_ms(torch, lambda: gs.fused_gn_step_plain(prep, g.poses, g.landmarks, cfg), reps=5)
+    ms = _time_ms(torch, {"kernel": lambda: kern.step(row)})["kernel"]
+    plain_ms = _time_ms(torch, {"plain": lambda: gs.fused_gn_step_plain(prep, g.poses, g.landmarks,
+                                                                        cfg)}, reps=3, rounds=3)["plain"]
     fmas, nbytes = _gn_step_work(g)
     bound, by = _bound_ms(fmas, nbytes)
     # the dense algorithm's own count, for scale: W U^T lower half, Cholesky, solves
@@ -277,7 +356,8 @@ def check_gn_step(torch, gs, g, cfg, label):
              clamped=[int(rk[3]), int(rk[4])],
              max_abs_err=max_abs_err, unfused_vs_plain=gap, err_vs_f64=err64, ms=ms,
              plain_ms=plain_ms, bound_ms=bound, bound_by=by, fmas=fmas, bytes=nbytes,
-             dense_algorithm_bound_ms=_bound_ms(dense_fmas, 0.0)[0], library_ms=None)
+             dense_algorithm_bound_ms=_bound_ms(dense_fmas, 0.0)[0], library_ms=None,
+             launches_per_call=_launches_per_call(torch, lambda: kern.step(row)))
     print(f"gn_step {label}: " + json.dumps(r))
     return r
 
@@ -464,16 +544,19 @@ def check_windowed(torch, wg, pk, n_poses, n_landmarks, rng):
         for C in chans:
             values = torch.from_numpy(rng.standard_normal((M, C)).astype(np.float32)).to(DEV)
             _, err = _hold_exact(torch, wg, values, idx, plan, f"{name} C={C}", valid)
-            ms = _cuda_ms(torch, lambda: wg.windowed_take(values, idx, plan))
-            plain_ms = _cuda_ms(torch, lambda: wg.windowed_take_plain(values, idx, plan), reps=5)
-            lib_ms = _cuda_ms(torch, lambda: values[idx])
+            t = _time_ms(torch, {"kernel": lambda: wg.windowed_take(values, idx, plan),
+                                 "library": lambda: values[idx]}, graph=True)
+            ms, lib_ms = t["kernel"], t["library"]
+            plain_ms = _time_ms(torch, {"plain": lambda: wg.windowed_take_plain(values, idx, plan)},
+                                reps=5, rounds=3)["plain"]
             # idx, values and the output, each once; no arithmetic to speak of
             nbytes = 4 * (R * K + M * C + R * K * C)
             bound, by = _bound_ms(0.0, nbytes)
             r = dict(shape=[R, K, C], values_rows=M, window=plan.window, tile_rows=plan.tile_rows,
                      n_tiles=plan.n_tiles, last_tile_rows=R - (plan.n_tiles - 1) * plan.tile_rows,
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                     library_ms=lib_ms, bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
+                     library_ms=lib_ms, vs_library=ms / lib_ms, no_slower_than_library=ms <= lib_ms,
+                     bound_fraction=bound / ms, bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
             print(f"windowed_take {name} C={C}: " + json.dumps(r))
             rows[(name, C)] = r
 
@@ -723,12 +806,24 @@ def main() -> int:
 
     # ---- each kernel against its plain version and an f64 solve ----
     rng = np.random.default_rng(0)
-    for n in (1024, 1280, 1664, 2048):
+    # every size a path gives the Cholesky: 1024 (gn-schur, gn-fused at
+    # 301/141), 1280 (gn-dense), 1536 (the whole step's cap), 1664
+    # (MAX_VMEM_DIM); and 2048 past it
+    for n in (1024, 1280, 1536, 1664, 2048):
         H = torch.from_numpy(_spd(n, rng)).cuda()
         b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
         check_cholesky(torch, chol, H, b, "random cond 1e4")
+    check_cholesky_not_spd(torch, chol, 1280, rng)
     for Np, Ml in ((1024, 384), (1280, 512)):
         check_schur(torch, ss, _random_schur_inputs(torch, Np, Ml, rng), 0.0, "random cond 1e4")
+    # the gather's launches per call, on a small banded grid (the count does
+    # not depend on the shape)
+    idx_g = np.clip(np.arange(4096)[:, None] + rng.integers(-8, 9, (4096, 7)), 0, 4095)
+    plan_g = wg.plan_windows(idx_g.astype(np.int32), np.ones(idx_g.shape, bool), 4096, device=DEV)
+    vals_g = torch.from_numpy(rng.standard_normal((4096, 3)).astype(np.float32)).to(DEV)
+    idx_g = torch.from_numpy(idx_g.astype(np.int32)).to(DEV)
+    gather_per_call = _launches_per_call(torch, lambda: wg.windowed_take(vals_g, idx_g, plan_g))
+    print(f"windowed_take kernel launches per call: {gather_per_call}")
 
     ig, gt = generate_sequence(301, 141, seed=SEED)
     g, meta = build_graph(ig, init="triangulate")
@@ -749,6 +844,12 @@ def main() -> int:
     bp_d = torch.zeros(Np_d, device=H.device)
     bp_d[:N] = -mask * bvec
     chol_main = check_cholesky(torch, chol, Hp.contiguous(), bp_d, "graph dense system")
+    chol_main["launches_per_call"] = _launches_per_call(
+        torch, lambda: chol.cholesky_solve_padded(Hp.contiguous(), bp_d))
+    print(f"cholesky kernel launches per solve: {chol_main['launches_per_call']} "
+          f"(n = {Np_d}, tile {chol.TILE})")
+    if not 1 <= chol_main["launches_per_call"] <= 3:
+        raise AssertionError(f"cholesky: {chol_main['launches_per_call']} launches per solve")
     cfg_s = SolverConfig(linear_solver="schur", fused_step="off", iters=ITERS)
     pmask = schur._pose_mask(g.n_poses, g.fixed_pose_ix, torch.float32)
     inputs = schur.fused_schur_inputs(g, cfg_s, cfg_s.damping, edge_terms(g, cfg_s), pmask)
@@ -849,26 +950,32 @@ def main() -> int:
              max_abs_err=chol_main["max_abs_err"], ms=chol_main["ms"],
              plain_ms=chol_main["plain_ms"], bound_ms=chol_main["bound_ms"],
              bound_by=chol_main["bound_by"], library_ms=chol_main["library_ms"],
-             shape=chol_main["shape"], path="gn-dense"),
+             launches_per_call=chol_main["launches_per_call"], shape=chol_main["shape"],
+             path="gn-dense"),
         dict(name="fused_schur_solve_blocks", route="cuda",
              source="boslam_torch/ops/csrc/schur_solve.cu",
              replaces="boslam/ops/pallas_schur.py:133", launches=schur_launches,
              max_abs_err=schur_main["max_abs_err"], ms=schur_main["ms"],
              plain_ms=schur_main["plain_ms"], bound_ms=schur_main["bound_ms"],
              bound_by=schur_main["bound_by"], library_ms=None,
-             shape=schur_main["shape"], path="gn-schur"),
+             launches_per_call=schur_main["launches_per_call"], shape=schur_main["shape"],
+             path="gn-schur"),
         dict(name="fused_gn_step", route="cuda", source="boslam_torch/ops/csrc/gn_step.cu",
              replaces="boslam/ops/pallas_gn_step.py:792", launches=fused_launches,
              max_abs_err=gn_main["max_abs_err"], ms=gn_main["ms"], plain_ms=gn_main["plain_ms"],
              bound_ms=gn_main["bound_ms"], bound_by=gn_main["bound_by"], library_ms=None,
-             shape=gn_main["shape"], path="gn-fused"),
+             launches_per_call=gn_main["launches_per_call"], shape=gn_main["shape"],
+             path="gn-fused"),
         dict(name="windowed_take", route="cuda", source="boslam_torch/ops/csrc/windowed_gather.cu",
              replaces="boslam/ops/windowed_gather.py:157", launches=win_launches,
              max_abs_err=win_row["max_abs_err"], ms=win_row["ms"], plain_ms=win_row["plain_ms"],
              bound_ms=win_row["bound_ms"], bound_by=win_row["bound_by"],
-             library_ms=win_row["library_ms"], shape=win_row["shape"],
+             library_ms=win_row["library_ms"], launches_per_call=gather_per_call,
+             shape=win_row["shape"],
              path="packed-windowed 10k + 100k (landmark grid of the 100k corridor)"),
     ]
+    if not all(k["launches"] > 0 and k["launches_per_call"] > 0 for k in kernels):
+        raise AssertionError(f"a kernel was not launched: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -35,21 +35,57 @@ def _spd(n, rng, cond=1e4):
     return ((Q * eigs) @ Q.T).astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [128, 256, 384])
+@pytest.mark.parametrize("n", [128, 256, 384, 300])
 def test_cholesky_plain_matches_pallas(n):
     """The plain blocked solve, the Pallas kernel and the f64 solve agree
-    at test_pallas_cholesky.py's bound (atol 5e-3 * max|x|, cond 1e4)."""
+    at test_pallas_cholesky.py's bound (atol 5e-3 * max|x|, cond 1e4).
+    n = 300, not a multiple of the tile, goes through ``cholesky_solve``
+    (padded to 384) on both sides."""
     rng = np.random.default_rng(n)
     H = _spd(n, rng)
     b = rng.standard_normal(n).astype(np.float32)
     want = np.linalg.solve(H.astype(np.float64), b.astype(np.float64))
     before = chol.cholesky_solve_padded.launches
-    got = chol.cholesky_solve_padded(torch.from_numpy(H), torch.from_numpy(b)).numpy()
+    if n % chol.TILE:
+        got = chol.cholesky_solve(torch.from_numpy(H), torch.from_numpy(b)).numpy()
+        ref = np.asarray(pc_jax.cholesky_solve(jnp.asarray(H), jnp.asarray(b), interpret=True))
+    else:
+        got = chol.cholesky_solve_padded(torch.from_numpy(H), torch.from_numpy(b)).numpy()
+        ref = np.asarray(pc_jax.cholesky_solve_padded(jnp.asarray(H), jnp.asarray(b),
+                                                      interpret=True))
     assert chol.cholesky_solve_padded.launches == before  # CPU: no kernel launch
-    ref = np.asarray(pc_jax.cholesky_solve_padded(jnp.asarray(H), jnp.asarray(b), interpret=True))
+    assert got.shape == (n,)
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=5e-3 * scale)
     np.testing.assert_allclose(got, ref, atol=5e-3 * scale)
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_tri_inv_plain_matches_jax(n):
+    """The plain recursive tile inverse against the JAX package's _tri_inv
+    on the same lower-triangular tiles (the Cholesky factors of SPD tiles
+    of condition 1e3): its max error relative to the f64 inverse within 2x
+    JAX's own (floored at 2x f32 epsilon), and the upper triangle exactly 0."""
+    rng = np.random.default_rng(100 + n)
+    L = np.linalg.cholesky(_spd(n, rng, cond=1e3).astype(np.float64)).astype(np.float32)
+    want = np.linalg.inv(L.astype(np.float64))
+    got = chol.tri_inv(torch.from_numpy(L)).numpy()
+    ref = np.asarray(pc_jax._tri_inv(jnp.asarray(L)))
+    scale = np.abs(want).max()
+    err, err_jax = np.abs(got - want).max() / scale, np.abs(ref - want).max() / scale
+    assert err <= 2.0 * max(err_jax, np.finfo(np.float32).eps), (err, err_jax)
+    assert np.all(np.triu(got, 1) == 0.0)
+
+
+def test_tile_matches_kernel_header():
+    """The plain version's tile and the kernel's (csrc/cholesky.cuh) agree,
+    so the wrappers size the inverse scratch for the tile the kernel takes."""
+    import re
+    from pathlib import Path
+
+    src = (Path(chol.__file__).parent / "csrc" / "cholesky.cuh").read_text()
+    assert int(re.search(r"constexpr int TILE = (\d+);", src).group(1)) == chol.TILE
+    assert chol.B % chol.TILE == 0 and chol.TILE % chol.BASE == 0
 
 
 def test_cholesky_padded_identity():
