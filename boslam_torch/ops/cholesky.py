@@ -19,6 +19,8 @@ propagates to ``x``: callers read NaN as "not SPD".
 
 from __future__ import annotations
 
+import re
+
 import torch
 
 from boslam_torch.ops import _build
@@ -27,6 +29,26 @@ B = 128  # padding unit of the public functions (the JAX package's tile)
 TILE = 32  # tile of the blocked algorithm: chol::TILE in csrc/cholesky.cuh
 BASE = 8  # base block of tri_inv, as in _tri_inv
 MAX_VMEM_DIM = 13 * B  # 1664: size gate kept from the JAX package
+# The band route (csrc/band_cholesky.cuh) holds its window in one block's
+# shared memory: (bt + 1)^2 tiles of the band, rows padded to LD floats, the
+# spare tiles and y [n].  Its numbers (LD, SPARE_TILES, SMEM_LIMIT) come from
+# csrc/band_window.h, the one place the kernel's launch size takes them from.
+BAND_WINDOW = {k: int(v) for k, v in re.findall(r"^#define BOSLAM_BAND_(\w+)\s+(\d+)",
+                                                (_build.CSRC / "band_window.h").read_text(),
+                                                re.MULTILINE)}
+
+
+def band_smem_bytes(band_tiles: int, n: int) -> int:
+    """Shared memory of the band route at ``band_tiles`` = bt for an n x n
+    system (csrc/band_cholesky.cuh: smem_bytes)."""
+    k = band_tiles + 1
+    return 4 * ((k * k + BAND_WINDOW["SPARE_TILES"]) * TILE * BAND_WINDOW["LD"] + n)
+
+
+def band_fits(band_tiles: int, n: int) -> bool:
+    """The route rule: the band route takes a band whose window fits one
+    block's shared memory (bt <= 5 up to n = 1536), else the dense route."""
+    return band_smem_bytes(band_tiles, n) <= BAND_WINDOW["SMEM_LIMIT"]
 
 
 def pad_dim(n: int) -> int:
@@ -71,9 +93,21 @@ def tri_inv(L: torch.Tensor) -> torch.Tensor:
     return X[0]
 
 
-def blocked_factor(L: torch.Tensor):
-    """Factor L (lower triangle, in place) tile by tile; returns tile inverses."""
+def _reach(band_tiles, n: int) -> int:
+    """Scalar rows a tile couples with on either side: all of them when
+    dense (``band_tiles`` None), else ``band_tiles`` tiles."""
+    return n if band_tiles is None else band_tiles * TILE
+
+
+def blocked_factor(L: torch.Tensor, band_tiles: int | None = None):
+    """Factor L (lower triangle, in place) tile by tile; returns tile inverses.
+
+    With ``band_tiles`` = bt, every tile more than bt tiles below the
+    diagonal must be zero: the loops then stop bt tiles below the panel,
+    which skips only updates that are sums of exact zeros.
+    """
     n = L.shape[0]
+    reach = _reach(band_tiles, n)
     inverses = []
     for k0 in range(0, n, TILE):
         k1 = k0 + TILE
@@ -81,25 +115,29 @@ def blocked_factor(L: torch.Tensor):
         Linv = tri_inv(Lkk)
         inverses.append(Linv)
         L[k0:k1, k0:k1] = Lkk
+        e = min(n, k1 + reach)
         if k1 < n:
-            P = L[k1:, k0:k1] @ Linv.T
-            L[k1:, k0:k1] = P
-            L[k1:, k1:] -= P @ P.T
+            P = L[k1:e, k0:k1] @ Linv.T
+            L[k1:e, k0:k1] = P
+            L[k1:e, k1:e] -= P @ P.T
     return inverses
 
 
-def blocked_substitute(L, inverses, b, mask=None):
-    """Solve L L^T x = b by tiles; ``mask`` multiplies each solved x tile."""
+def blocked_substitute(L, inverses, b, mask=None, band_tiles: int | None = None):
+    """Solve L L^T x = b by tiles; ``mask`` multiplies each solved x tile.
+    ``band_tiles`` as in ``blocked_factor``."""
     n = L.shape[0]
+    reach = _reach(band_tiles, n)
     y = torch.empty_like(b)
     for i, i0 in enumerate(range(0, n, TILE)):
-        i1 = i0 + TILE
-        acc = b[i0:i1] - L[i0:i1, :i0] @ y[:i0]
+        i1, lo = i0 + TILE, max(0, i0 - reach)
+        acc = b[i0:i1] - L[i0:i1, lo:i0] @ y[lo:i0]
         y[i0:i1] = inverses[i] @ acc
     x = torch.empty_like(b)
     for i in reversed(range(n // TILE)):
         i0, i1 = i * TILE, (i + 1) * TILE
-        acc = y[i0:i1] - L[i1:, i0:i1].T @ x[i1:]
+        e = min(n, i1 + reach)
+        acc = y[i0:i1] - L[i1:e, i0:i1].T @ x[i1:e]
         xi = inverses[i].T @ acc
         x[i0:i1] = xi if mask is None else mask[i0:i1] * xi
     return x

@@ -13,9 +13,10 @@
 //                       to a closed-form 2x2 inverse, and bl; the U block of
 //                       each (pose, landmark) pair; the odometry coupling of
 //                       each unordered pose pair
-//   schur.cuh           W = U Hll^-1, S = m m^T o (Hpp + lam I - W U^T) +
-//                       diag(1 - m), rhs, the blocked Cholesky solve of
-//                       cholesky.cuh, dl
+//   schur.cuh           W = U Hll^-1, rhs, S = m m^T o (Hpp + lam I - W U^T)
+//                       + diag(1 - m) on the route's band of tiles, the
+//                       factor-solve (band_cholesky.cuh: one block; or the
+//                       dense cholesky.cuh), dl
 //   gn_finish_kernel    one block: boxplus, the non-finite guard (the old
 //                       state is kept), and this step's stats row
 //
@@ -29,17 +30,26 @@
 // zero determinant).  The odometry b-side weight is the unfused path's,
 // J^T Omega (w_b e); the TPU kernel also multiplies it by w_H.
 //
+// The route (GNStepArgs::band, decided on the host once per solve by
+// ops/gn_step.py tile_band): S's band bt in 32-wide tiles when the band's
+// window fits one block's shared memory (bt <= 5 at these sizes: graphs
+// of up to ~300 poses in pose order, bt 3-4 at 301/141), else -1, the
+// dense route (the 512-pose cap graph: bt 42).  Both routes give the same
+// bits where the step is finite.
+//
 // What bounds it on the H100: neither arithmetic nor bytes.  At the
 // reference size (301 poses, 141 landmarks; Np = 1024, Ml = 384) the step
-// needs ~2e6 FMAs when the sparsity of U and the envelope of S are counted,
-// and the dense algorithm here does ~4e8 (the Np^3/6 Cholesky and the
-// lower half of W U^T): under 12 us at the f32 CUDA-core peak either way,
-// and the inputs are ~60 KB.  The pipeline is latency-bound: 8 dependent
-// launches, the longest the Cholesky's one cooperative launch of 2 Np/32 - 1
-// grid-barrier phases (cholesky.cuh).  The
-// design keeps the whole iteration in one host call, so the host never
-// holds the card back, and every launch simple; all arithmetic is f32 FMA
-// on the CUDA cores, never TF32.
+// needs ~2e6 FMAs when the sparsity of U and the envelope of S are counted;
+// the band route does ~8e7 (W U^T on the band's 64-wide tiles, 9e6 for
+// the band factor), the dense route ~4e8: a few microseconds at the f32
+// CUDA-core peak either way, and the inputs are ~60 KB.  The pipeline is
+// latency-bound: 8 dependent launches, the longest the factor-solve, whose
+// chain on the band route is 2 Np/32 dependent steps inside one block (the
+// one-warp factor of each diagonal tile, then each backward row), on the
+// dense route 2 Np/32 - 1 grid-barrier phases.  The design keeps the whole
+// iteration in one host call, so the host never holds the card back, and
+// every launch simple; all arithmetic is f32 FMA on the CUDA cores, never
+// TF32.
 #include <cfloat>
 
 #include "schur.cuh"
@@ -75,6 +85,7 @@ struct GNStepArgs {
   float *Hpp, *U, *Hb, *bp, *bl, *W, *S, *Linv, *rhs, *y, *x, *dl;
   float *stats;  // [8]: chi2_b, chi2_o, chi2_robust, clamped_b, clamped_o, |delta|^2, ok, 0
   int np_, nl, nb, no, Np, Ml, robust, quirk;  // robust: 0 none, 1 threshold, 2 huber
+  int band;  // S's band in 32-wide tiles (the band route), -1: the dense route
 };
 
 // Plane sections.  A pose contribution id is e (bearing edge e), nb + e
@@ -458,8 +469,8 @@ extern "C" {
 // One GN iteration on the state a->poses [np_, 3], a->lms [nl, 2], updated
 // in place; this step's stats go to a->stats.  Hpp, U and bp must be zero
 // where no block is written (zeroed once per solve).  Returns the first
-// failed launch's error, or cudaErrorInvalidValue for sizes out of range,
-// else 0.
+// failed launch's error, or cudaErrorInvalidValue for sizes out of range
+// or a band whose window does not fit, else 0.
 int boslam_gn_step(const boslam::GNStepArgs *args, void *stream_ptr) {
   using namespace boslam;
   const GNStepArgs a = *args;
@@ -479,16 +490,12 @@ int boslam_gn_step(const boslam::GNStepArgs *args, void *stream_ptr) {
   const size_t nw = (size_t)a.Np * a.Ml;
   schur_w_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, stream>>>(a.U, a.Hb, a.W, a.Np, a.Ml);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int nt = a.Np / T;
-  // scal[0], the damping, is the lam the S kernel adds on the diagonal
-  schur_s_kernel<<<nt * (nt + 1) / 2, NT, 0, stream>>>(a.Hpp, a.W, a.U, a.mask, a.scal, a.S,
-                                                       a.Np, a.Ml);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   schur_rhs_kernel<<<(a.Np * 32 + 255) / 256, 256, 0, stream>>>(a.W, a.bl, a.bp, a.mask, a.rhs,
                                                                 a.Np, a.Ml);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = cholesky_factor_solve(a.S, a.Linv, a.rhs, a.y, a.x, a.mask, a.Np, stream)) !=
-      cudaSuccess)
+  // scal[0], the damping, is the lam the S kernel adds on the diagonal
+  if ((err = s_factor_solve(a.Hpp, a.W, a.U, a.mask, a.scal, a.S, a.Linv, a.rhs, a.y, a.x, a.Np,
+                            a.Ml, a.band, stream)) != cudaSuccess)
     return (int)err;
   schur_dl_kernel<<<a.Ml / T, SOLVE_THREADS, 0, stream>>>(a.U, a.Hb, a.bl, a.x, a.dl, a.Np,
                                                           a.Ml);

@@ -8,16 +8,22 @@
 //                                    by one 2x2 block (not a dense product)
 //   S   = m m^T o (Hpp + lam I - W U^T) + diag(1 - m)
 //                                    schur_s_kernel: tiled f32 GEMM over the
-//                                    lower 64x64 tiles of S only
+//                                    lower 64x64 tiles of S within `band`
+//                                    tiles of the diagonal: all of them on
+//                                    the dense route, the band's on the band
+//                                    route (band_cholesky.cuh), which never
+//                                    reads the others
 //   rhs = m o (W bl - bp)            schur_rhs_kernel: one warp per row
 //   dl  = Hll^-1 (-bl - U^T x)       schur_dl_kernel: column reduction of U
 //                                    plus the 2x2 block apply
 //
 // Hll^-1 comes as its [Ml/2, 2, 2] diagonal blocks, Hb.  Np % 64 == 0 and
-// Ml % 64 == 0; nothing else bounds the sizes.
+// Ml % 64 == 0; nothing else bounds the sizes.  factor_solve() picks the
+// route: band::factor_solve (band_cholesky.cuh) for a band bt >= 0, the dense
+// factor-solve of cholesky.cuh for bt < 0.
 #pragma once
 
-#include "cholesky.cuh"
+#include "band_cholesky.cuh"
 
 namespace boslam {
 
@@ -38,14 +44,37 @@ __global__ void schur_w_kernel(const float *__restrict__ U, const float *__restr
   W[idx] = Ur[l2] * Hl[c] + Ur[l2 + 1] * Hl[2 + c];
 }
 
+// Lower T-tile t of S within `band` tiles of the diagonal (band < nt): the
+// first band + 1 rows are a triangle, every later row has band + 1 tiles.
+__device__ __forceinline__ void band_decode(int t, int band, int &ip, int &jp) {
+  const int tri = (band + 1) * (band + 2) / 2;
+  if (t < tri) return tri_decode(t, ip, jp);
+  t -= tri;
+  ip = band + 1 + t / (band + 1);
+  jp = ip - band + t % (band + 1);
+}
+
+// The T-tile band of S that covers a band of bt chol::TILE tiles (every
+// T-tile when bt < 0): a 32-tile (i, j) with i - j <= bt lies in the 64-tile
+// (i/2, j/2), at most (bt + 1) / 2 from the diagonal.  And its count of
+// lower tiles.
+static_assert(T == 2 * chol::TILE, "s_band assumes two factorization tiles per S tile");
+inline int s_band(int bt, int nt) {
+  const int b = bt < 0 ? nt - 1 : (bt + 1) / 2;
+  return b < nt - 1 ? b : nt - 1;
+}
+inline int s_tiles(int band, int nt) {
+  return (band + 1) * (band + 2) / 2 + (nt - band - 1) * (band + 1);
+}
+
 __global__ void __launch_bounds__(NT)
 schur_s_kernel(const float *__restrict__ Hpp, const float *__restrict__ W,
                const float *__restrict__ U, const float *__restrict__ mask,
-               const float *__restrict__ lam, float *__restrict__ S, int np, int ml) {
+               const float *__restrict__ lam, float *__restrict__ S, int np, int ml, int band) {
   __shared__ float Wt[T][KC + 1];
   __shared__ float Ut[T][KC + 1];
   int ip, jp;
-  tri_decode(blockIdx.x, ip, jp);
+  band_decode(blockIdx.x, band, ip, jp);
   const int i0 = ip * T, j0 = jp * T;
   const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
   float acc[4][4] = {};
@@ -123,6 +152,26 @@ schur_dl_kernel(const float *__restrict__ U, const float *__restrict__ Hb,
     const int col = c0 + tid, l2 = tid & ~1;
     dl[col] = Hb[2 * col] * t[l2] + Hb[2 * col + 1] * t[l2 + 1];
   }
+}
+
+// S (np x np, lower tiles of the route's band) factored in place and
+// solved for x; y is the dense route's scratch.
+inline cudaError_t factor_solve(float *S, float *Linv, const float *rhs, float *y, float *x,
+                                const float *mask, int np, int bt, cudaStream_t stream) {
+  if (bt >= 0) return band::factor_solve(S, Linv, rhs, x, mask, np, bt, stream);
+  return cholesky_factor_solve(S, Linv, rhs, y, x, mask, np, stream);
+}
+
+// The S GEMM over the route's band, then the factor-solve.
+inline cudaError_t s_factor_solve(const float *Hpp, const float *W, const float *U,
+                                  const float *mask, const float *lam, float *S, float *Linv,
+                                  const float *rhs, float *y, float *x, int np, int ml, int bt,
+                                  cudaStream_t stream) {
+  const int nt = np / T, band = s_band(bt, nt);
+  schur_s_kernel<<<s_tiles(band, nt), NT, 0, stream>>>(Hpp, W, U, mask, lam, S, np, ml, band);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return factor_solve(S, Linv, rhs, y, x, mask, np, bt, stream);
 }
 
 }  // namespace boslam

@@ -10,10 +10,16 @@ signatures.  For CUDA tensors every GN iteration is one call into
 ``csrc/gn_step.cu`` (a short pipeline of launches on the current stream,
 counted once in ``fused_gn_step.launches``); for CPU tensors the plain
 PyTorch version, ``fused_gn_step_plain``, computes the same step.
-``prep_static`` builds what a solve keeps fixed, on the graph's device and
-without a host sync: the edges as int32/f32 arrays, the gauge mask, and
-the ownership lists by which the kernel sums each pose, landmark and pair
-in a fixed order (no atomics, so a run repeats to the bit).
+``prep_static`` builds what a solve keeps fixed, on the graph's device:
+the edges as int32/f32 arrays, the gauge mask, the ownership lists by
+which the kernel sums each pose, landmark and pair in a fixed order (no
+atomics, so a run repeats to the bit), and the route of the reduced
+system's factor-solve, ``band_tiles``: the band route when S's tile band
+fits one block's shared memory, else None, the dense route.
+``tile_band`` computes it from the edges' structure, a host wait that
+``fused_gn_solve`` makes once per solve; ``fused_gn_step`` takes the route
+from its caller.  Steps on the band route also count in
+``fused_gn_step.band_launches``.
 
 The state keeps the port's interleaved layout (3p + c, 2l + c); the
 reduced system is padded to 128-multiples, Np = pad(3 NP), Ml = pad(2 NL),
@@ -25,12 +31,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from boslam_torch.config import SolverConfig
+from boslam_torch.device import host_sync
 from boslam_torch.graph.data import FactorGraph
 from boslam_torch.ops import _build
-from boslam_torch.ops.cholesky import TILE
+from boslam_torch.ops.cholesky import TILE, band_fits
 
 B = 128
 # size gate kept from the JAX package (pallas_gn_step.py:139-144)
@@ -80,6 +88,7 @@ class GNPrep:
     u_key: torch.Tensor  # i32[NB]: the sorted keys
     c_order: torch.Tensor  # i32[NO]: odometry edges sorted by min * NP + max
     c_key: torch.Tensor  # i32[NO]
+    band_tiles: int | None = None  # S's tile band (the band route), None: dense
 
 
 def _sorted_by(keys: torch.Tensor, n_keys: int | None = None):
@@ -92,9 +101,56 @@ def _sorted_by(keys: torch.Tensor, n_keys: int | None = None):
     return order.to(torch.int32), sk.to(torch.int32), off
 
 
-def prep_static(g: FactorGraph) -> GNPrep:
+def first_coupled(g: FactorGraph) -> tuple[np.ndarray, int]:
+    """(first i64[NP], the gauge pose): for each pose, the lowest pose it
+    couples with in the gauge-masked reduced system S (itself at least).
+
+    Poses a and b couple through an odometry edge or a landmark both
+    observe; the gauge pose couples only with itself.  Structure, not
+    values: the edges go to the host once (inside ``host_sync`` when they
+    live on the card), never inside a solve loop.
+    """
+    NP_, NL = g.n_poses, g.n_landmarks
+    with host_sync(g.device):
+        fix = int(g.fixed_pose_ix)
+        src, dst = g.o_src.cpu().numpy(), g.o_dst.cpu().numpy()
+        bp, bl = g.b_pose.cpu().numpy(), g.b_lm.cpu().numpy()
+    first = np.arange(NP_)
+    keep = (src != fix) & (dst != fix)
+    np.minimum.at(first, np.maximum(src, dst)[keep], np.minimum(src, dst)[keep])
+    seen = bp != fix
+    lm_first = np.full(NL, NP_)
+    np.minimum.at(lm_first, bl[seen], bp[seen])
+    np.minimum.at(first, bp[seen], lm_first[bl[seen]])
+    return first, fix
+
+
+def structural_band(g: FactorGraph) -> int:
+    """The tile band bt of the gauge-masked reduced system S: the largest
+    tile distance r // TILE - c // TILE between coupled rows r >= c
+    (``first_coupled``; the padding rows couple only with themselves)."""
+    first, fix = first_coupled(g)
+    p = np.arange(g.n_poses)
+    live = p != fix
+    dist = (3 * p[live] + 2) // TILE - (3 * first[live]) // TILE
+    return int(dist.max(initial=0))
+
+
+def tile_band(g: FactorGraph, Np: int | None = None) -> int | None:
+    """The band route's ``band_tiles`` for the graph's reduced system of
+    padded size ``Np`` (by default 3 NP padded to 128): S's tile band when
+    the band's window fits one block's shared memory
+    (``cholesky.band_fits``), else None (the dense route).  Decided on the
+    host, once per solve."""
+    bt = structural_band(g)
+    return bt if band_fits(bt, _pad128(3 * g.n_poses) if Np is None else Np) else None
+
+
+def prep_static(g: FactorGraph, band_tiles: int | None = None) -> GNPrep:
     """Counterpart of ``_prep_static`` (pallas_gn_step.py:841): the fixed
-    edge data and ownership lists of a solve, built on the graph's device."""
+    edge data and ownership lists of a solve, built on the graph's device
+    without a host wait, and the route of its factor-solve the caller chose
+    (``band_tiles`` from ``tile_band``; None: the dense route)."""
     NP_, NL = g.n_poses, g.n_landmarks
     dev = g.device
     Np, Ml = _pad128(3 * NP_), _pad128(2 * NL)
@@ -116,6 +172,7 @@ def prep_static(g: FactorGraph) -> GNPrep:
         o_src=g.o_src.to(i32), o_dst=g.o_dst.to(i32), o_omega6=o_omega6,
         pose_order=pose_order, pose_off=pose_off, lm_order=lm_order, lm_off=lm_off,
         u_order=u_order, u_key=u_key, c_order=c_order, c_key=c_key,
+        band_tiles=band_tiles,
     )
 
 
@@ -163,7 +220,7 @@ def fused_gn_step_plain(prep: GNPrep, poses: torch.Tensor, landmarks: torch.Tens
     pmask = prep.mask[: 3 * NP_ : 3, None]
     # the inputs come damped, so the solve adds zero
     x, dl = fused_schur_solve_blocks_plain(
-        *fused_schur_inputs(g, cfg, cfg.damping, terms, pmask), 0.0)
+        *fused_schur_inputs(g, cfg, cfg.damping, terms, pmask), 0.0, prep.band_tiles)
     new_p, new_l = boxplus_state(poses, landmarks, x[: 3 * NP_].reshape(NP_, 3),
                                  dl[: 2 * NL].reshape(NL, 2))
     ok = torch.isfinite(new_p).all() & torch.isfinite(new_l).all()
@@ -186,7 +243,7 @@ _PTR_FIELDS = (
     "mask", "scal", "poses", "lms",
     "planes", "Hpp", "U", "Hb", "bp", "bl", "W", "S", "Linv", "rhs", "y", "x", "dl", "stats",
 )
-_INT_FIELDS = ("np_", "nl", "nb", "no", "Np", "Ml", "robust", "quirk")
+_INT_FIELDS = ("np_", "nl", "nb", "no", "Np", "Ml", "robust", "quirk", "band")
 
 
 class _Args(ctypes.Structure):
@@ -255,7 +312,9 @@ class GNStepKernel:
             **{n: t.data_ptr() for n, t in self._keep.items()}, stats=0,
             np_=g.n_poses, nl=g.n_landmarks, nb=NB, no=NO, Np=Np, Ml=Ml,
             robust=_ROBUST[cfg.robust], quirk=int(bool(cfg.reference_kernel_quirk)),
+            band=-1 if prep.band_tiles is None else prep.band_tiles,
         )
+        self.band_tiles = prep.band_tiles
 
     def step(self, stats_row: torch.Tensor) -> None:
         """One GN iteration in place; its stats go to ``stats_row`` f32[8]."""
@@ -266,12 +325,15 @@ class GNStepKernel:
         stream = torch.cuda.current_stream(self.poses.device).cuda_stream
         err = self._lib.boslam_gn_step(ctypes.byref(self._args), stream)
         fused_gn_step.launches += 1
+        if self.band_tiles is not None:
+            fused_gn_step.band_launches += 1
         _build.check(self._lib, err, "fused_gn_step")
 
 
-def _run(g: FactorGraph, cfg: SolverConfig, iters: int):
-    """``iters`` whole steps from ``g``'s state: (poses, landmarks, rows [iters, 8])."""
-    prep = prep_static(g)
+def _run(g: FactorGraph, cfg: SolverConfig, iters: int, band_tiles: int | None):
+    """``iters`` whole steps from ``g``'s state on the route ``band_tiles``:
+    (poses, landmarks, rows [iters, 8])."""
+    prep = prep_static(g, band_tiles)
     rows = torch.zeros((iters, STATS_WIDTH), dtype=torch.float32, device=g.device)
     poses, landmarks = g.poses.clone(), g.landmarks.clone()
     if g.poses.is_cuda:
@@ -285,26 +347,29 @@ def _run(g: FactorGraph, cfg: SolverConfig, iters: int):
     return poses, landmarks, rows
 
 
-def fused_gn_step(g: FactorGraph, cfg: SolverConfig):
+def fused_gn_step(g: FactorGraph, cfg: SolverConfig, band_tiles: int | None = None):
     """One GN iteration as one whole-step call: (g', stats).
 
     Drop-in for ``optimizer.gn_step`` on the exact-Schur path within
     ``fused_gn_fits``: the kernel for a CUDA graph, the plain version for a
-    CPU graph.
+    CPU graph.  ``band_tiles``: the route, ``tile_band(g)`` computed once by
+    a caller that steps the same graph again, or None for the dense route.
     """
-    poses, landmarks, rows = _run(g, cfg, 1)
+    poses, landmarks, rows = _run(g, cfg, 1, band_tiles)
     return g.with_state(poses, landmarks), _stats(rows[0], cfg)
 
 
 fused_gn_step.launches = 0
+fused_gn_step.band_launches = 0  # those of .launches on the band route
 
 
 def fused_gn_solve(g: FactorGraph, cfg: SolverConfig):
-    """``cfg.iters`` whole steps, with the static data prepped once.
+    """``cfg.iters`` whole steps, with the static data and the route
+    (``tile_band``, the solve's one host wait) prepped once.
 
     Same return contract as ``optimizer.solve_loop``: the final graph and
     per-iteration stats with a leading ``iters`` axis, all on the device
     (the loop never waits on the host).
     """
-    poses, landmarks, rows = _run(g, cfg, cfg.iters)
+    poses, landmarks, rows = _run(g, cfg, cfg.iters, tile_band(g))
     return g.with_state(poses, landmarks), _stats(rows, cfg)

@@ -8,13 +8,34 @@
     dl  = Hll^-1 (-bl - U^T x)
 
 ``fused_schur_solve_blocks`` takes Hll^-1 as its [Ml/2, 2, 2] diagonal
-blocks.  It launches the hand-written CUDA kernels (``csrc/schur_solve.cu``,
-which reuses the factorization and substitutions of ``csrc/cholesky.cuh``)
+blocks.  It launches the hand-written CUDA kernels (``csrc/schur_solve.cu``)
 for CUDA tensors and runs the plain PyTorch version,
 ``fused_schur_solve_blocks_plain``, for CPU tensors.
 ``fused_schur_solve_padded`` keeps the JAX package's signature, a dense
-[Ml, Ml] block-diagonal ``HllD``, and reads its diagonal blocks.  The gauge
-and pad rows carry mask 0, so their x comes out as exact 0.0.
+[Ml, Ml] block-diagonal ``HllD``, reads its diagonal blocks and takes the
+dense route.  The gauge and pad rows carry mask 0, so their x comes out
+as exact 0.0.
+
+Two routes, chosen by the caller on the host once per solve:
+
+- the band route (``band_tiles`` = bt, from ``gn_step.tile_band``): S is
+  zero more than bt 32-wide tiles below its diagonal, as the reduced
+  system of a graph in pose order is (two poses couple only through an
+  odometry edge or a shared landmark).  The kernel builds S on the band's
+  tiles only and factors and solves it in one thread block
+  (``csrc/band_cholesky.cuh``), its window of (bt + 1)^2 tiles in shared
+  memory, with no grid barrier.  The rule: bt whose window fits one
+  block's shared memory (``cholesky.band_fits``: bt <= 5 at these sizes).
+  It computes the same numbers as the dense route, since every skipped
+  update is a sum of exact zeros; it is bounded by its chain of 2 n/32
+  dependent steps (the one-warp factor of each diagonal tile, then the
+  backward substitution), a few microseconds each.
+- the dense route (``band_tiles`` None): S on every lower tile and the
+  cooperative factor-solve of ``csrc/cholesky.cuh``, for random systems
+  and graphs whose band does not fit.
+
+A band route that cannot launch raises; it never falls back to the dense
+route.
 """
 
 from __future__ import annotations
@@ -22,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from boslam_torch.ops import _build
-from boslam_torch.ops.cholesky import TILE, blocked_factor, blocked_substitute
+from boslam_torch.ops.cholesky import TILE, band_fits, blocked_factor, blocked_substitute
 
 B = 128
 MAX_NP = 10 * B  # 1280: size gates kept from the JAX package
@@ -49,8 +70,9 @@ def _as_damping(damping, like: torch.Tensor) -> torch.Tensor:
     return torch.full((1,), float(damping), dtype=like.dtype, device=like.device)
 
 
-def fused_schur_solve_blocks_plain(Hpp, U, Hb, bp, bl, mask, damping):
-    """Plain PyTorch version of the kernel, on any device."""
+def fused_schur_solve_blocks_plain(Hpp, U, Hb, bp, bl, mask, damping, band_tiles=None):
+    """Plain PyTorch version of the kernel, on any device; ``band_tiles``
+    restricts the factor-solve to the band, as the kernel's band route."""
     _check(Hpp, U, Hb, bp, bl, mask)
     Np, Ml = U.shape
     W = torch.einsum("rlb,lba->rla", U.reshape(Np, Ml // 2, 2), Hb).reshape(Np, Ml)
@@ -59,8 +81,8 @@ def fused_schur_solve_blocks_plain(Hpp, U, Hb, bp, bl, mask, damping):
     S = (Hpp - W @ U.T) + lam * eye
     S = S * (mask[:, None] * mask[None, :]) + eye * (1.0 - mask)
     rhs = mask * (W @ bl - bp)
-    inverses = blocked_factor(S)
-    x = blocked_substitute(S, inverses, rhs, mask)
+    inverses = blocked_factor(S, band_tiles)
+    x = blocked_substitute(S, inverses, rhs, mask, band_tiles)
     t = -bl - U.T @ x
     dl = torch.einsum("lab,lb->la", Hb, t.reshape(Ml // 2, 2)).reshape(Ml)
     return x, dl
@@ -87,17 +109,18 @@ def _check(Hpp, U, Hb, bp, bl, mask) -> None:
         )
 
 
-def fused_schur_solve_blocks(Hpp, U, Hb, bp, bl, mask, damping):
+def fused_schur_solve_blocks(Hpp, U, Hb, bp, bl, mask, damping, band_tiles=None):
     """Reduced-system solve; returns (x f32[Np], dl f32[Ml]).
 
     ``Hpp`` f32[Np, Np] (damping is added here), ``U`` f32[Np, Ml], ``Hb``
     f32[Ml/2, 2, 2] the diagonal blocks of Hll^-1, ``bp`` f32[Np], ``bl``
     f32[Ml], ``mask`` f32[Np] (0 on the gauge rows and the padding),
     ``damping`` a scalar (a float or a tensor, read on the device without a
-    sync).
+    sync).  ``band_tiles``: S's tile band for the band route, None for the
+    dense route.
     """
     if not Hpp.is_cuda:
-        return fused_schur_solve_blocks_plain(Hpp, U, Hb, bp, bl, mask, damping)
+        return fused_schur_solve_blocks_plain(Hpp, U, Hb, bp, bl, mask, damping, band_tiles)
     _check(Hpp, U, Hb, bp, bl, mask)
     if not all(t.is_contiguous() for t in (Hpp, U, Hb, bp, bl, mask)):
         raise ValueError("all inputs must be contiguous")
@@ -113,14 +136,18 @@ def fused_schur_solve_blocks(Hpp, U, Hb, bp, bl, mask, damping):
     p = _build.ptr
     err = lib.boslam_schur_solve(
         p(Hpp), p(U), p(Hb), p(bp), p(bl), p(mask), p(lam), p(W), p(S), p(Linv),
-        p(rhs), p(y), p(x), p(dl), Np, Ml, torch.cuda.current_stream(Hpp.device).cuda_stream,
+        p(rhs), p(y), p(x), p(dl), Np, Ml, -1 if band_tiles is None else int(band_tiles),
+        torch.cuda.current_stream(Hpp.device).cuda_stream,
     )
     fused_schur_solve_blocks.launches += 1
+    if band_tiles is not None:
+        fused_schur_solve_blocks.band_launches += 1
     _build.check(lib, err, "fused_schur_solve_blocks")
     return x, dl
 
 
 fused_schur_solve_blocks.launches = 0
+fused_schur_solve_blocks.band_launches = 0  # those of .launches on the band route
 
 
 def fused_schur_solve_padded(Hpp, U, HllD, bp, bl, mask, damping):
@@ -139,6 +166,6 @@ def _lib():
     lib = _build.load_library("schur_solve")
     fn = lib.boslam_schur_solve
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -45,13 +45,13 @@ def _fused_step_applicable(g: FactorGraph, cfg: SolverConfig) -> bool:
     return cfg.fused_step == "force" or g.poses.is_cuda
 
 
-def _build_and_solve(g: FactorGraph, cfg: SolverConfig, damping):
+def _build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, band_tiles=None):
     if cfg.linear_solver == "dense":
         return GN.gn_build_and_solve(g, cfg, damping)
     if cfg.linear_solver in ("schur", "schur_cg"):
         from boslam_torch.solver import schur
 
-        return schur.schur_build_and_solve(g, cfg, damping)
+        return schur.schur_build_and_solve(g, cfg, damping, band_tiles=band_tiles)
     raise ValueError(f"unknown linear_solver {cfg.linear_solver!r}")
 
 
@@ -59,14 +59,17 @@ def _delta_norm(dp, dl):
     return torch.sqrt(torch.sum(dp * dp) + torch.sum(dl * dl))
 
 
-def gn_step(g: FactorGraph, cfg: SolverConfig):
-    """One constant-damping GN iteration."""
+def gn_step(g: FactorGraph, cfg: SolverConfig, band_tiles: int | None = None):
+    """One constant-damping GN iteration.  ``band_tiles`` picks the route
+    of the Schur kernel (``schur.kernel_band``, computed once per solve by
+    ``solve_loop``) or of the whole step (``gn_step.tile_band``); None
+    takes the dense route."""
     _check_ported(cfg)
     if _fused_step_applicable(g, cfg):
         from boslam_torch.ops.gn_step import fused_gn_step
 
-        return fused_gn_step(g, cfg)
-    dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, cfg.damping)
+        return fused_gn_step(g, cfg, band_tiles)
+    dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, cfg.damping, band_tiles)
     poses, landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
     stats = chi2_stats(terms, cfg)
     stats.update(extra)
@@ -82,11 +85,13 @@ def _robust_total(g: FactorGraph, cfg: SolverConfig) -> torch.Tensor:
     return torch.sum(robust_cost(t.bchi2, cfg)) + torch.sum(robust_cost(t.ochi2, cfg))
 
 
-def lm_step(g: FactorGraph, lam: torch.Tensor, cfg: SolverConfig):
+def lm_step(g: FactorGraph, lam: torch.Tensor, cfg: SolverConfig,
+            band_tiles: int | None = None):
     """One LM trial: solve with damping ``lam``, accept iff the robust cost
-    decreases, and scale lam down (accept) or up (reject)."""
+    decreases, and scale lam down (accept) or up (reject).  ``band_tiles``
+    as in ``gn_step``."""
     _check_ported(cfg)
-    dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, lam)
+    dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, lam, band_tiles)
     cand_poses, cand_landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
     cand = g.with_state(cand_poses, cand_landmarks)
 
@@ -127,24 +132,27 @@ def solve_loop(graph: FactorGraph, cfg: SolverConfig, lam0: torch.Tensor | None 
     _check_ported(cfg)
     per_iter = []
     g = graph
-    if cfg.optimizer == "gn":
-        if _fused_step_applicable(graph, cfg):
-            from boslam_torch.ops.gn_step import fused_gn_solve
+    if cfg.optimizer == "gn" and _fused_step_applicable(graph, cfg):
+        from boslam_torch.ops.gn_step import fused_gn_solve
 
-            return fused_gn_solve(graph, cfg)
+        return fused_gn_solve(graph, cfg)
+    if cfg.optimizer not in ("gn", "lm"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    from boslam_torch.solver.schur import kernel_band
+
+    band = kernel_band(graph, cfg)  # the Schur kernel's route, once per solve
+    if cfg.optimizer == "gn":
         for _ in range(cfg.iters):
-            g, stats = gn_step(g, cfg)
+            g, stats = gn_step(g, cfg, band)
             per_iter.append(stats)
         return g, _stack(per_iter)
-    if cfg.optimizer == "lm":
-        lam = lam0
-        if lam is None:
-            lam = torch.full((), cfg.lm_lambda0, dtype=graph.poses.dtype, device=graph.device)
-        for _ in range(cfg.iters):
-            g, lam, stats = lm_step(g, lam, cfg)
-            per_iter.append(stats)
-        return g, _stack(per_iter)
-    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    lam = lam0
+    if lam is None:
+        lam = torch.full((), cfg.lm_lambda0, dtype=graph.poses.dtype, device=graph.device)
+    for _ in range(cfg.iters):
+        g, lam, stats = lm_step(g, lam, cfg, band)
+        per_iter.append(stats)
+    return g, _stack(per_iter)
 
 
 def solve(graph: FactorGraph, cfg: SolverConfig, lam0: float | None = None):

@@ -398,15 +398,16 @@ def fused_schur_inputs(g: FactorGraph, cfg: SolverConfig, damping, terms: EdgeTe
 
 
 def fused_schur_solve(g: FactorGraph, cfg: SolverConfig, damping, terms: EdgeTerms,
-                      mask: torch.Tensor):
+                      mask: torch.Tensor, band_tiles: int | None = None):
     """Exact Schur solve through ``ops.schur_solve.fused_schur_solve_blocks``:
     damping -> Schur correction -> Cholesky -> both back-substitutions in
-    the kernel module.  Returns (dp f32[NP,3], dl f32[NL,2])."""
+    the kernel module, on the band route for a ``band_tiles`` (``kernel_band``)
+    and the dense route for None.  Returns (dp f32[NP,3], dl f32[NL,2])."""
     from boslam_torch.ops.schur_solve import fused_schur_solve_blocks
 
     inputs = fused_schur_inputs(g, cfg, damping, terms, mask)
     # the blocks are already damped, so the kernel adds zero
-    x, dl = fused_schur_solve_blocks(*inputs, 0.0)
+    x, dl = fused_schur_solve_blocks(*inputs, 0.0, band_tiles)
     Np, Ml = 3 * g.n_poses, 2 * g.n_landmarks
     return x[:Np].reshape(g.n_poses, 3), dl[:Ml].reshape(g.n_landmarks, 2)
 
@@ -417,7 +418,26 @@ def _nan_guard(dp, dl):
             torch.where(ok, dl, torch.zeros_like(dl)), ok)
 
 
-def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bool | None = None):
+def _takes_kernel(g: FactorGraph) -> bool:
+    from boslam_torch.ops.schur_solve import fused_fits
+
+    return g.poses.is_cuda and fused_fits(3 * g.n_poses, 2 * g.n_landmarks)
+
+
+def kernel_band(g: FactorGraph, cfg: SolverConfig) -> int | None:
+    """The Schur kernel's route for a solve of ``g`` under ``cfg``: S's tile
+    band (``gn_step.tile_band``) where the exact Schur kernel runs and the
+    band fits, else None.  Computed once per solve (one host wait for the
+    edges' structure), never per iteration."""
+    if cfg.linear_solver != "schur" or not _takes_kernel(g):
+        return None
+    from boslam_torch.ops.gn_step import tile_band
+
+    return tile_band(g)
+
+
+def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bool | None = None,
+                          band_tiles: int | None = None):
     """Schur linear solve; same interface as the dense path.
 
     Returns (delta_poses f32[NP,3], delta_landmarks f32[NL,2], terms, ok,
@@ -426,19 +446,17 @@ def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bo
     Schur kernel runs; otherwise S is materialized and solved as on the JAX
     package's non-TPU backends.  ``use_cg=True`` ("schur_cg"): matrix-free
     PCG to ``cfg.cg_tol``, a truncated inner solve of inexact Newton.
+    ``band_tiles`` (from ``kernel_band``) picks the kernel's route.
     """
     if use_cg is None:
         use_cg = cfg.linear_solver == "schur_cg"
     mask = _pose_mask(g.n_poses, g.fixed_pose_ix, g.poses.dtype)
     extra = {}
-    if not use_cg:
-        from boslam_torch.ops.schur_solve import fused_fits
-
-        if g.poses.is_cuda and fused_fits(3 * g.n_poses, 2 * g.n_landmarks):
-            terms = edge_terms(g, cfg)
-            dp, dl = fused_schur_solve(g, cfg, damping, terms, mask)
-            dp, dl, ok = _nan_guard(dp, dl)
-            return dp, dl, terms, ok, extra
+    if not use_cg and _takes_kernel(g):
+        terms = edge_terms(g, cfg)
+        dp, dl = fused_schur_solve(g, cfg, damping, terms, mask, band_tiles)
+        dp, dl, ok = _nan_guard(dp, dl)
+        return dp, dl, terms, ok, extra
 
     blocks, terms = build_blocks(g, cfg, damping)
     if not use_cg:

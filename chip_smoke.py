@@ -121,9 +121,9 @@ def _time_ms(torch, fns, reps=20, rounds=5, graph=False) -> dict:
 
 
 # the port's kernels, by the names the profiler gives them
-PORT_KERNELS = ("chol_solve_kernel", "schur_w_kernel", "schur_s_kernel", "schur_rhs_kernel",
-                "schur_dl_kernel", "gn_edge_kernel", "gn_assemble_kernel", "gn_finish_kernel",
-                "windowed_take_kernel")
+PORT_KERNELS = ("chol_solve_kernel", "band_solve_kernel", "schur_w_kernel", "schur_s_kernel",
+                "schur_rhs_kernel", "schur_dl_kernel", "gn_edge_kernel", "gn_assemble_kernel",
+                "gn_finish_kernel", "windowed_take_kernel")
 
 
 def _launches_per_call(torch, fn) -> int:
@@ -219,10 +219,19 @@ def _schur_f64(torch, Hpp, U, Hb, bp, bl, m, lam):
     return x, HllD @ (-bl - U.T @ x)
 
 
-def check_schur(torch, ss, inputs, lam, label):
+def _route(band_tiles):
+    return "dense" if band_tiles is None else "band"
+
+
+def check_schur(torch, ss, inputs, lam, label, band_tiles=None, graph=None):
+    """The Schur kernel on one route against its plain version (the same
+    route) and an f64 solve; on the band route also against the dense
+    route on the same inputs, to the bit, and timed beside it.  ``graph``:
+    the bound is counted on the graph's envelope (as row 3's), else on the
+    dense algorithm."""
     Np, Ml = inputs[1].shape
-    x_k, dl_k = ss.fused_schur_solve_blocks(*inputs, lam)
-    x_p, dl_p = ss.fused_schur_solve_blocks_plain(*inputs, lam)
+    x_k, dl_k = ss.fused_schur_solve_blocks(*inputs, lam, band_tiles)
+    x_p, dl_p = ss.fused_schur_solve_blocks_plain(*inputs, lam, band_tiles)
     torch.cuda.synchronize()
     x64, dl64 = _schur_f64(torch, *inputs, float(lam))
     if not (torch.isfinite(x_k).all() and torch.isfinite(dl_k).all()):
@@ -231,32 +240,50 @@ def check_schur(torch, ss, inputs, lam, label):
         raise AssertionError(f"schur {label}: masked rows are not exactly 0")
     dense = list(inputs)
     dense[2] = torch.block_diag(*inputs[2])
-    x_d, dl_d = ss.fused_schur_solve_padded(*dense, lam)
+    x_d, dl_d = ss.fused_schur_solve_padded(*dense, lam)  # the dense route
     if not (torch.equal(x_d, x_k) and torch.equal(dl_d, dl_k)):
-        raise AssertionError(f"schur {label}: the dense-HllD signature gives another result")
+        raise AssertionError(f"schur {label}: the dense route (dense-HllD signature) gives "
+                             f"another result than the {_route(band_tiles)} route")
     err_k = max((x_k.double() - x64).abs().max().item(), (dl_k.double() - dl64).abs().max().item())
     err_p = max((x_p.double() - x64).abs().max().item(), (dl_p.double() - dl64).abs().max().item())
     _check_error(f"schur {label}", err_k, err_p)
     # the Cholesky share of the work, by the library, as a yardstick only
     S = torch.eye(Np, device=inputs[0].device) * 4.0
-    t = _time_ms(torch, {
-        "kernel": lambda: ss.fused_schur_solve_blocks(*inputs, lam),
-        "chol_library": lambda: torch.cholesky_solve(inputs[3][:, None], torch.linalg.cholesky(S))})
+    fns = {"kernel": lambda: ss.fused_schur_solve_blocks(*inputs, lam, band_tiles),
+           "chol_library": lambda: torch.cholesky_solve(inputs[3][:, None], torch.linalg.cholesky(S))}
+    if band_tiles is not None:
+        fns["dense"] = lambda: ss.fused_schur_solve_blocks(*inputs, lam)
+        # wider bands than S's compute the same numbers over more zero tiles:
+        # what each added band tile costs
+        for bt in (b for b in range(band_tiles + 1, 8) if ss.band_fits(b, Np)):
+            if not all(torch.equal(a, r) for a, r in zip(
+                    ss.fused_schur_solve_blocks(*inputs, lam, bt), (x_k, dl_k))):
+                raise AssertionError(f"schur {label}: band {bt} differs from band {band_tiles}")
+            fns[f"band {bt}"] = lambda bt=bt: ss.fused_schur_solve_blocks(*inputs, lam, bt)
+    t = _time_ms(torch, fns)
     ms, chol_lib_ms = t["kernel"], t["chol_library"]
-    plain_ms = _time_ms(torch, {"plain": lambda: ss.fused_schur_solve_blocks_plain(*inputs, lam)},
-                        reps=3, rounds=3)["plain"]
-    # W, the lower triangle of W U^T, rhs, the factorization (Np^3/6), the
-    # two triangular solves (Np^2/2 each), U^T x and the 2x2 block apply
-    fmas = 2 * Np * Ml + Np * (Np + 1) / 2 * Ml + Np * Ml + Np**3 / 6 + Np * Np + Np * Ml + 2 * Ml
-    # inputs Hpp, U, Hb [Ml/2,2,2], bp, bl, mask, lam; outputs x, dl
-    nbytes = 4 * (Np * Np + Np * Ml + 2 * Ml + 3 * Np + 2 * Ml + 1 + Np + Ml)
+    plain_ms = _time_ms(torch, {"plain": lambda: ss.fused_schur_solve_blocks_plain(
+        *inputs, lam, band_tiles)}, reps=3, rounds=3)["plain"]
+    if graph is not None:
+        fmas, nbytes = _schur_solve_work(graph)
+    else:
+        # W, the lower triangle of W U^T, rhs, the factorization (Np^3/6), the
+        # two triangular solves (Np^2/2 each), U^T x and the 2x2 block apply
+        fmas = (2 * Np * Ml + Np * (Np + 1) / 2 * Ml + Np * Ml + Np**3 / 6 + Np * Np + Np * Ml
+                + 2 * Ml)
+        # inputs Hpp, U, Hb [Ml/2,2,2], bp, bl, mask, lam; outputs x, dl
+        nbytes = 4 * (Np * Np + Np * Ml + 2 * Ml + 3 * Np + 2 * Ml + 1 + Np + Ml)
     bound, by = _bound_ms(fmas, nbytes)
     err = max((x_k - x_p).abs().max().item(), (dl_k - dl_p).abs().max().item())
-    r = dict(shape=[Np, Ml], max_abs_err=err, err_vs_f64=err_k, plain_err_vs_f64=err_p, ms=ms,
-             plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+    r = dict(shape=[Np, Ml], route=_route(band_tiles), band_tiles=band_tiles,
+             max_abs_err=err, err_vs_f64=err_k, plain_err_vs_f64=err_p, ms=ms,
+             dense_route_ms=t.get("dense"), bitwise_vs_dense_route=True,
+             wider_band_ms={k: v for k, v in t.items() if k.startswith("band ")},
+             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+             bound_basis="envelope" if graph is not None else "dense", library_ms=None,
              cholesky_only_library_ms=chol_lib_ms,
              launches_per_call=_launches_per_call(
-                 torch, lambda: ss.fused_schur_solve_blocks(*inputs, lam)))
+                 torch, lambda: ss.fused_schur_solve_blocks(*inputs, lam, band_tiles)))
     print(f"schur {label} Np={Np} Ml={Ml}: " + json.dumps(r))
     return r
 
@@ -272,32 +299,48 @@ def _f64_step(g, cfg):
     return gn_step(g64, cfg.replace(linear_solver="dense", fused_step="off"))[0]
 
 
-def _gn_step_work(g):
-    """(FMAs, bytes) that one GN step needs on this graph.
+def _schur_solve_work(g):
+    """(FMAs, bytes) that the reduced-system solve of this graph needs,
+    counted on its envelope.
 
-    FMAs: the edge terms (~60 per bearing, ~230 per odometry edge), the
-    sums, the landmark elimination per landmark with k distinct observing
+    FMAs: the landmark elimination per landmark with k distinct observing
     poses (W: 3k x 2, the lower triangle of W U^T: 3k(3k+1)/2 entries of
     2 FMAs, its rhs share), the Cholesky of S over its envelope under the
     pose order (row i with w_i entries left of the diagonal: w_i(w_i+1)/2;
-    rows are coupled through odometry and shared landmarks), both
-    substitutions, dl and boxplus.  Bytes: the state in and out, the edges
-    and the stats row."""
-    NP_, NL, NB, NO = g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry
+    rows are coupled through odometry and shared landmarks, as
+    ``gn_step.first_coupled`` finds them), both substitutions, and dl (U^T
+    x over the pairs, the 2x2 block apply).  Bytes: the nonzero inputs
+    (Hpp's diagonal and odometry blocks, U's pair blocks, Hll^-1's blocks,
+    bp, bl, the mask, lam) and x, dl."""
+    from boslam_torch.ops import gn_step as gs
+
+    NP_, NL = g.n_poses, g.n_landmarks
     bp, bl = g.b_pose.cpu().numpy(), g.b_lm.cpu().numpy()
     src, dst = g.o_src.cpu().numpy(), g.o_dst.cpu().numpy()
     pairs = np.unique(bp * NL + bl)
     k = np.bincount(pairs % NL, minlength=NL).astype(np.float64)
     schur = np.sum(3 * k * 2 * 2 + 3 * k * (3 * k + 1) + 3 * k * 2)
-    first = np.arange(NP_)
-    np.minimum.at(first, np.maximum(src, dst), np.minimum(src, dst))
-    lm_first = np.full(NL, NP_)
-    np.minimum.at(lm_first, bl, bp)
-    np.minimum.at(first, bp, lm_first[bl])
+    first, _ = gs.first_coupled(g)
     w = ((3 * np.arange(NP_)[:, None] + np.arange(3)) - 3 * first[:, None]).astype(np.float64)
     chol = np.sum(w * (w + 1) / 2) + 2 * np.sum(w + 1)
+    fmas = schur + chol + 6 * len(pairs) + 4 * NL
+    odo_pairs = len(np.unique(np.minimum(src, dst) * NP_ + np.maximum(src, dst)))
+    nbytes = 4 * (9 * NP_ + 18 * odo_pairs + 6 * len(pairs) + 4 * NL + 3 * NP_ + 2 * NL + 3 * NP_
+                  + 1 + 3 * NP_ + 2 * NL)
+    return float(fmas), float(nbytes)
+
+
+def _gn_step_work(g):
+    """(FMAs, bytes) that one GN step needs on this graph.
+
+    FMAs: the edge terms (~60 per bearing, ~230 per odometry edge), the
+    sums, the reduced-system solve on its envelope (``_schur_solve_work``)
+    and boxplus.  Bytes: the state in and out, the edges and the stats
+    row."""
+    NP_, NL, NB, NO = g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry
+    solve, _ = _schur_solve_work(g)
     edges = 60 * NB + 230 * NO + 9 * (NB + 2 * NO) + 11 * NB + 9 * NO + 10 * NL
-    fmas = edges + schur + chol + 6 * len(pairs) + 4 * NL + 8 * NP_ + 2 * NL
+    fmas = edges + solve + 8 * NP_ + 2 * NL
     nbytes = 4 * (2 * (3 * NP_ + 2 * NL) + 4 * NB + 14 * NO + 2 + 8)
     return float(fmas), float(nbytes)
 
@@ -316,15 +359,25 @@ def check_gn_step(torch, gs, g, cfg, label):
     built on the CPU, so the kernel's reading repeats."""
     from boslam_torch.solver.optimizer import gn_step
 
-    prep = gs.prep_static(g)
+    prep = gs.prep_static(g, gs.tile_band(g))
     poses, lms = g.poses.clone(), g.landmarks.clone()
     kern = gs.GNStepKernel(prep, poses, lms, cfg)
     row = torch.zeros(gs.STATS_WIDTH, device=g.device)
     kern.step(row)
+    if prep.band_tiles is not None:
+        # the dense route on the same step: the same bits
+        prep_d = dataclasses.replace(prep, band_tiles=None)
+        p_d, l_d = g.poses.clone(), g.landmarks.clone()
+        kern_d = gs.GNStepKernel(prep_d, p_d, l_d, cfg)
+        row_d = torch.zeros_like(row)
+        kern_d.step(row_d)
+        if not (torch.equal(p_d, poses) and torch.equal(l_d, lms) and torch.equal(row_d, row)):
+            raise AssertionError(f"gn_step {label}: the band route (bt {prep.band_tiles}) and the "
+                                 f"dense route part: {row.tolist()} vs {row_d.tolist()}")
     p_p, l_p, row_p = gs.fused_gn_step_plain(prep, g.poses, g.landmarks, cfg)
     g_u, _ = gn_step(g, cfg.replace(fused_step="off"))
     g_cpu = g.to("cpu")
-    p_c, l_c, _ = gs.fused_gn_step_plain(gs.prep_static(g_cpu), g_cpu.poses, g_cpu.landmarks, cfg)
+    p_c, l_c, _ = gs.fused_gn_step_plain(gs.prep_static(g_cpu, prep.band_tiles), g_cpu.poses, g_cpu.landmarks, cfg)
     g_uc, _ = gn_step(g_cpu, cfg.replace(fused_step="off"))
     torch.cuda.synchronize()
     rk, rp = row.cpu().numpy(), row_p.cpu().numpy()
@@ -344,7 +397,11 @@ def check_gn_step(torch, gs, g, cfg, label):
     if not err64["kernel"] <= 2.0 * max(v for k, v in err64.items() if k != "kernel"):
         raise AssertionError(f"gn_step {label}: kernel-plain {max_abs_err:.3e}, unfused-plain "
                              f"{gap:.3e}, vs f64 {err64}")
-    ms = _time_ms(torch, {"kernel": lambda: kern.step(row)})["kernel"]
+    fns = {"kernel": lambda: kern.step(row)}
+    if prep.band_tiles is not None:
+        fns["dense"] = lambda: kern_d.step(row_d)
+    t = _time_ms(torch, fns)
+    ms = t["kernel"]
     plain_ms = _time_ms(torch, {"plain": lambda: gs.fused_gn_step_plain(prep, g.poses, g.landmarks,
                                                                         cfg)}, reps=3, rounds=3)["plain"]
     fmas, nbytes = _gn_step_work(g)
@@ -352,6 +409,9 @@ def check_gn_step(torch, gs, g, cfg, label):
     # the dense algorithm's own count, for scale: W U^T lower half, Cholesky, solves
     dense_fmas = prep.Np * (prep.Np + 1) / 2 * prep.Ml + prep.Np**3 / 6 + prep.Np**2
     r = dict(shape=[prep.Np, prep.Ml], graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry],
+             route=_route(prep.band_tiles), band_tiles=prep.band_tiles,
+             band_of_s=gs.structural_band(g), dense_route_ms=t.get("dense"),
+             bitwise_vs_dense_route=prep.band_tiles is not None,
              robust=[cfg.robust, cfg.kernel_threshold, cfg.reference_kernel_quirk],
              clamped=[int(rk[3]), int(rk[4])],
              max_abs_err=max_abs_err, unfused_vs_plain=gap, err_vs_f64=err64, ms=ms,
@@ -369,8 +429,9 @@ def run_fused(torch, solve, g, g_cpu, cfg, counters, chi2_schur, meta, gt, label
     from boslam_torch.metrics import ate_metrics, match_gt_poses
 
     st_cpu = _stats(solve(g_cpu, cfg.replace(fused_step="force"))[1])
+    band = _band_route(_graph_band(g), label)
     g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
-    want = {k: (cfg.iters if k == "gn_step" else 0) for k in counters}
+    want = _want(counts, gn_step=cfg.iters, gn_step_band=cfg.iters)
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     c, c_cpu = st["chi2_robust"], st_cpu["chi2_robust"]
@@ -386,8 +447,8 @@ def run_fused(torch, solve, g, g_cpu, cfg, counters, chi2_schur, meta, gt, label
         raise AssertionError(f"{label}: a second run is not bitwise identical")
     ate = ate_metrics(g2.poses.cpu().numpy(), match_gt_poses(meta, gt))
     print(f"{label}: " + json.dumps(dict(
-        launches=counts, chi2_first=float(c[0]), chi2_final=float(c[-1]),
-        chi2_final_cpu=float(c_cpu[-1]), rel_vs_cpu=float(rel_cpu),
+        launches=counts, route="band", band_tiles=band, chi2_first=float(c[0]),
+        chi2_final=float(c[-1]), chi2_final_cpu=float(c_cpu[-1]), rel_vs_cpu=float(rel_cpu),
         chi2_final_gn_schur=float(chi2_schur), rel_vs_gn_schur=float(rel_schur),
         bitwise_repeat=True, ate_rmse_aligned=ate["ate_rmse_aligned"],
         ms_per_iter_first_run=secs / cfg.iters * 1e3, ms_per_iter=secs_warm / cfg.iters * 1e3)))
@@ -418,8 +479,9 @@ def run_stall(torch, solve, g, g_cpu, cfg, counters, label):
     section 7): the kernel keeps the state from its first failed step on.
     Its plain version on the CPU (whose f32 products need not repeat to the
     bit) and the card's unfused path are printed beside it."""
+    band = _band_route(_graph_band(g), label)
     g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
-    want = {k: (cfg.iters if k == "gn_step" else 0) for k in counters}
+    want = _want(counts, gn_step=cfg.iters, gn_step_band=cfg.iters)
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     if not (torch.isfinite(g2.poses).all() and torch.isfinite(g2.landmarks).all()):
@@ -429,7 +491,8 @@ def run_stall(torch, solve, g, g_cpu, cfg, counters, label):
     k_cpu = _first_failed_step(st_cpu, repeats=False)
     _, st_u, _, _ = _run_path(torch, solve, g, cfg.replace(fused_step="off"), counters)
     print(f"{label}: " + json.dumps(dict(
-        launches=counts, first_failed_step=k, chi2_at_stall=float(st["chi2_robust"][-1]),
+        launches=counts, route="band", band_tiles=band, first_failed_step=k,
+        chi2_at_stall=float(st["chi2_robust"][-1]),
         plain_cpu_first_failed_step=k_cpu, plain_cpu_chi2_final=float(st_cpu["chi2_robust"][-1]),
         unfused_spd_ok=bool(st_u["spd_ok"].all()),
         unfused_chi2_final=float(st_u["chi2_robust"][-1]), ms_per_iter=secs / cfg.iters * 1e3)))
@@ -461,6 +524,8 @@ def _run_path(torch, solve, g, cfg, counters):
     makes the host wait for the card inside the iterations raises."""
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "band_launches"):
+            fn.band_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
@@ -470,7 +535,28 @@ def _run_path(torch, solve, g, cfg, counters):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return g2, _stats(st), {k: fn.launches for k, fn in counters.items()}, seconds
+    counts = {k: fn.launches for k, fn in counters.items()}
+    counts.update({f"{k}_band": fn.band_launches for k, fn in counters.items()
+                   if hasattr(fn, "band_launches")})
+    return g2, _stats(st), counts, seconds
+
+
+def _want(counts, **nonzero):
+    """Every count of ``counts`` at 0 but those named."""
+    return {**dict.fromkeys(counts, 0), **nonzero}
+
+
+def _graph_band(g):
+    """The band route's ``band_tiles`` for ``g``'s whole step (None: dense)."""
+    from boslam_torch.ops import gn_step as gs
+
+    return gs.tile_band(g)
+
+
+def _band_route(band, label):
+    if band is None:
+        raise AssertionError(f"{label}: the graph takes the dense route, not the band route")
+    return band
 
 
 def profile_path(torch, solve, g, cfg, iters=5, top=8):
@@ -619,7 +705,7 @@ def run_packed(torch, solve, g, cfg, counters, label, windowed):
     """One packed or flat CG path on the card with every count at 0: checks
     the windowed launches against the formula (0 when not ``windowed``)."""
     g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
-    want = {k: 0 for k in counters}
+    want = _want(counts)
     if windowed:
         want["windowed_take"] = _packed_launches(st, cfg.optimizer)
     if counts != want:
@@ -853,10 +939,13 @@ def main() -> int:
     cfg_s = SolverConfig(linear_solver="schur", fused_step="off", iters=ITERS)
     pmask = schur._pose_mask(g.n_poses, g.fixed_pose_ix, torch.float32)
     inputs = schur.fused_schur_inputs(g, cfg_s, cfg_s.damping, edge_terms(g, cfg_s), pmask)
-    schur_main = check_schur(torch, ss, inputs, 0.0, "graph reduced system")
+    band_main = _band_route(_graph_band(g), "graph 301/141")
+    schur_main = check_schur(torch, ss, inputs, 0.0, "graph reduced system", band_main, g)
     cfg_f = SolverConfig(linear_solver="schur", iters=ITERS)  # fused_step="auto"
     g_step = g_cpu.to("cuda")
     gn_main = check_gn_step(torch, gs, g_step, cfg_f, "graph 301/141")
+    if gn_main["band_tiles"] != band_main:
+        raise AssertionError(f"graph 301/141: the whole step's band {gn_main['band_tiles']}")
     # the kernel's other robust branches; at a threshold of 1e-3 bearing and
     # odometry edges both clamp, so both weights and the odometry b-side are live
     for name, kw in (("none", dict(robust="none")),
@@ -870,7 +959,9 @@ def main() -> int:
     g_cap = build_graph(ig_cap, init="triangulate", device="cpu")[0].to("cuda")
     if not gs.fused_gn_fits(g_cap.n_poses, g_cap.n_landmarks, g_cap.n_bearing, g_cap.n_odometry):
         raise AssertionError("the (512, 300) graph is outside fused_gn_fits")
-    check_gn_step(torch, gs, g_cap, cfg_f, f"graph {g_cap.n_poses}/{g_cap.n_landmarks} at the cap")
+    r = check_gn_step(torch, gs, g_cap, cfg_f, f"graph {g_cap.n_poses}/{g_cap.n_landmarks} at the cap")
+    if r["route"] != "dense":
+        raise AssertionError(f"the cap graph takes the {r['route']} route (band {r['band_of_s']})")
     del g_cap
 
     counters = {"cholesky": chol.cholesky_solve_padded, "schur": ss.fused_schur_solve_blocks,
@@ -880,8 +971,8 @@ def main() -> int:
     st_cpu = _stats(solve(g_cpu, cfg_s)[1])
     g2, st, counts, secs = _run_path(torch, solve, g, cfg_s, counters)
     schur_launches = counts["schur"]
-    if schur_launches != ITERS:
-        raise AssertionError(f"GN-schur: Schur kernel launched {schur_launches} times, not {ITERS}")
+    if schur_launches != ITERS or counts["schur_band"] != ITERS:
+        raise AssertionError(f"GN-schur: Schur kernel launched {counts}, not {ITERS} on the band route")
     if not st["spd_ok"].all():
         raise AssertionError("GN-schur: a step was not SPD")
     c, c_cpu = st["chi2_robust"], st_cpu["chi2_robust"]
@@ -891,8 +982,8 @@ def main() -> int:
     _, _, _, secs_warm = _run_path(torch, solve, g, cfg_s, counters)
     ate = ate_metrics(g2.poses.cpu().numpy(), match_gt_poses(meta, gt))
     print("gn-schur: " + json.dumps(dict(
-        launches=counts, chi2_first=float(c[0]), chi2_final=float(c[-1]),
-        chi2_final_cpu=float(c_cpu[-1]), rel_vs_cpu=float(rel),
+        launches=counts, route="band", band_tiles=band_main, chi2_first=float(c[0]),
+        chi2_final=float(c[-1]), chi2_final_cpu=float(c_cpu[-1]), rel_vs_cpu=float(rel),
         ate_rmse_aligned=ate["ate_rmse_aligned"], ms_per_iter_first_run=secs / ITERS * 1e3,
         ms_per_iter=secs_warm / ITERS * 1e3)))
 
@@ -914,10 +1005,11 @@ def main() -> int:
     cfg_lm = cfg_s.replace(optimizer="lm", iters=10)
     _, st_l, counts_l, secs_l = _run_path(torch, solve, g, cfg_lm, counters)
     cl = st_l["chi2_robust"]
-    if counts_l["schur"] != 10 or not np.isfinite(cl).all():
+    if counts_l["schur"] != 10 or counts_l["schur_band"] != 10 or not np.isfinite(cl).all():
         raise AssertionError(f"LM-schur: launches {counts_l}, chi2 {cl}")
     print("lm-schur: " + json.dumps(dict(
-        launches=counts_l, chi2_first=float(cl[0]), chi2_last=float(cl[-1]),
+        launches=counts_l, route="band", band_tiles=band_main, chi2_first=float(cl[0]),
+        chi2_last=float(cl[-1]),
         accepted=int(st_l["accepted"].sum()), ms_per_iter_first_run=secs_l / 10 * 1e3)))
 
     # ---- the main path: GN, exact Schur, fused_step="auto" -> the whole-step kernel ----
@@ -959,13 +1051,15 @@ def main() -> int:
              plain_ms=schur_main["plain_ms"], bound_ms=schur_main["bound_ms"],
              bound_by=schur_main["bound_by"], library_ms=None,
              launches_per_call=schur_main["launches_per_call"], shape=schur_main["shape"],
-             path="gn-schur"),
+             solve_route=schur_main["route"], band_tiles=schur_main["band_tiles"],
+             dense_route_ms=schur_main["dense_route_ms"], path="gn-schur"),
         dict(name="fused_gn_step", route="cuda", source="boslam_torch/ops/csrc/gn_step.cu",
              replaces="boslam/ops/pallas_gn_step.py:792", launches=fused_launches,
              max_abs_err=gn_main["max_abs_err"], ms=gn_main["ms"], plain_ms=gn_main["plain_ms"],
              bound_ms=gn_main["bound_ms"], bound_by=gn_main["bound_by"], library_ms=None,
              launches_per_call=gn_main["launches_per_call"], shape=gn_main["shape"],
-             path="gn-fused"),
+             solve_route=gn_main["route"], band_tiles=gn_main["band_tiles"],
+             dense_route_ms=gn_main["dense_route_ms"], path="gn-fused"),
         dict(name="windowed_take", route="cuda", source="boslam_torch/ops/csrc/windowed_gather.cu",
              replaces="boslam/ops/windowed_gather.py:157", launches=win_launches,
              max_abs_err=win_row["max_abs_err"], ms=win_row["ms"], plain_ms=win_row["plain_ms"],

@@ -363,3 +363,102 @@ def test_packed_windowed_step_matches_cpu(cuda, optimizer):
     c, c_cpu = st["chi2_robust"].cpu().numpy(), st_cpu["chi2_robust"].numpy()
     np.testing.assert_allclose(c[0], c_cpu[0], rtol=1e-5)
     np.testing.assert_allclose(c, c_cpu, rtol=2e-3)
+
+
+def _graph_seed(n_poses, n_landmarks, seed, loop_closures, device):
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.synth import generate_sequence
+
+    ig, _ = generate_sequence(n_poses, n_landmarks, seed=seed, loop_closures=loop_closures)
+    return build_graph(ig, init="triangulate", device="cpu")[0].to(device)
+
+
+@pytest.mark.parametrize("seed, loop_closures, band", [(3, 0, 3), (16, 4, 4)],
+                         ids=["chain", "closures"])
+def test_gn_step_band_route_matches_dense_route_bitwise(cuda, seed, loop_closures, band):
+    """The whole step at 301/141 on the band route and on the dense route:
+    the same new state and stats row, to the bit, over three steps."""
+    import dataclasses
+
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.ops import gn_step as gs
+
+    g = _graph_seed(301, 141, seed, loop_closures, cuda)
+    cfg = SolverConfig(linear_solver="schur")
+    prep = gs.prep_static(g, gs.tile_band(g))
+    assert prep.band_tiles == band
+    states = []
+    for p in (prep, dataclasses.replace(prep, band_tiles=None)):
+        poses, lms = g.poses.clone(), g.landmarks.clone()
+        kern = gs.GNStepKernel(p, poses, lms, cfg)
+        rows = torch.zeros((3, gs.STATS_WIDTH), device=cuda)
+        before = gs.fused_gn_step.band_launches
+        for i in range(3):
+            kern.step(rows[i])
+        assert gs.fused_gn_step.band_launches - before == (3 if p.band_tiles is not None else 0)
+        states.append((poses, lms, rows))
+    (p1, l1, r1), (p2, l2, r2) = states
+    assert bool(r1[:, 6].all()) and torch.isfinite(p1).all()
+    assert torch.equal(p1, p2) and torch.equal(l1, l2) and torch.equal(r1, r2)
+
+
+def test_schur_band_route_matches_dense_route_bitwise(cuda):
+    """The Schur kernel on the graph's reduced system: the band route (and
+    every wider band that fits) gives the dense route's bits."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.ops import cholesky as chol
+    from boslam_torch.ops import schur_solve as ss
+    from boslam_torch.solver import schur
+    from boslam_torch.solver.normal_eq import edge_terms
+
+    g = _graph_seed(301, 141, 3, 0, cuda)
+    cfg = SolverConfig(linear_solver="schur", fused_step="off")
+    band = schur.kernel_band(g, cfg)
+    assert band == 3
+    pmask = schur._pose_mask(g.n_poses, g.fixed_pose_ix, torch.float32)
+    inputs = schur.fused_schur_inputs(g, cfg, cfg.damping, edge_terms(g, cfg), pmask)
+    before = ss.fused_schur_solve_blocks.band_launches
+    x_d, dl_d = ss.fused_schur_solve_blocks(*inputs, 0.0)
+    assert ss.fused_schur_solve_blocks.band_launches == before
+    assert torch.isfinite(x_d).all()
+    widest = max(bt for bt in range(8) if chol.band_fits(bt, inputs[0].shape[0]))
+    for bt in range(band, widest + 1):
+        x_b, dl_b = ss.fused_schur_solve_blocks(*inputs, 0.0, bt)
+        assert torch.equal(x_b, x_d) and torch.equal(dl_b, dl_d), bt
+    assert ss.fused_schur_solve_blocks.band_launches == before + widest + 1 - band
+
+
+@pytest.mark.parametrize("n_poses, n_landmarks, seed, loop_closures, band", [
+    (301, 141, 3, 0, 3), (301, 141, 16, 4, 4), (301, 141, 0, 4, 4), (512, 300, 3, 0, None)])
+def test_route_of_each_graph(cuda, n_poses, n_landmarks, seed, loop_closures, band):
+    """The route a graph on the card takes: the band route at 301/141, the
+    dense route at the 512-pose cap (its band, 42 tiles, does not fit)."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.ops import gn_step as gs
+    from boslam_torch.solver import schur
+
+    g = _graph_seed(n_poses, n_landmarks, seed, loop_closures, cuda)
+    assert gs.tile_band(g) == band
+    # the unfused path's Schur kernel: the same band (the cap graph is
+    # outside its size gate, so no route at all)
+    assert schur.kernel_band(g, SolverConfig(linear_solver="schur")) == band
+
+
+def test_band_route_past_its_shared_memory_raises(cuda):
+    """A band whose window does not fit one block's shared memory is refused
+    at launch and raises; nothing runs on the dense route instead."""
+    from boslam_torch.ops import cholesky as chol
+    from boslam_torch.ops import schur_solve as ss
+
+    rng = np.random.default_rng(4)
+    Np, Ml = 1024, 128
+    past = min(bt for bt in range(8) if not chol.band_fits(bt, Np))
+    assert past >= 5 and chol.band_fits(past - 1, Np)
+    U = np.zeros((Np, Ml), np.float32)
+    blocks = np.stack([np.eye(2, dtype=np.float32)] * (Ml // 2))
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        _spd(Np, rng, cond=10.0), U, blocks, rng.standard_normal(Np).astype(np.float32),
+        np.zeros(Ml, np.float32), np.ones(Np, np.float32))]
+    with pytest.raises(RuntimeError, match="fused_schur_solve_blocks"):
+        ss.fused_schur_solve_blocks(*args, 0.0, past)
+    torch.cuda.synchronize()

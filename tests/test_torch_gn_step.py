@@ -121,7 +121,7 @@ def test_step_vs_pallas_interpret(n_poses, n_landmarks, loop_closures, plain_cal
     cfg_j = SolverConfigJax(linear_solver="schur", fused_step="off")
     gjf, sjf = pgs.fused_gn_step(gj, cfg_j, interpret=True)
     gju, _ = jax.jit(lambda x: opt_jax.gn_step(x, cfg_j))(gj)
-    g1, s1 = gs.fused_gn_step(g, SolverConfig(linear_solver="schur"))
+    g1, s1 = gs.fused_gn_step(g, SolverConfig(linear_solver="schur"), gs.tile_band(g))
     assert len(plain_calls) == 1
     _check_stats(s1, sjf)
     assert bool(s1["spd_ok"]) and bool(s1["accepted"])
@@ -135,7 +135,7 @@ def _vs_unfused(g, gj, **kw):
     """One port whole step against the JAX unfused Schur step; the state
     against the f64 step, beside the JAX Schur and dense steps."""
     cfg = SolverConfig(linear_solver="schur", fused_step="force", **kw)
-    g1, s1 = opt.gn_step(g, cfg)
+    g1, s1 = opt.gn_step(g, cfg, gs.tile_band(g))
     cfg_j = SolverConfigJax(linear_solver="schur", fused_step="off", **kw)
     gjs, sjs = jax.jit(lambda x: opt_jax.gn_step(x, cfg_j))(gj)
     gjd, _ = jax.jit(lambda x: opt_jax.gn_step(x, cfg_j.replace(linear_solver="dense")))(gj)
@@ -244,7 +244,7 @@ def _chunk_case(seed):
     g, gj = _graphs(301, 141, seed, bearing_every=10)
     cfg = SolverConfig(linear_solver="schur", fused_step="force")
     with mock.patch.object(gs, "fused_gn_step_plain", wraps=gs.fused_gn_step_plain) as plain:
-        g1, s1 = opt.gn_step(g, cfg)
+        g1, s1 = opt.gn_step(g, cfg, gs.tile_band(g))
     cfg_j = SolverConfigJax(linear_solver="schur", fused_step="off")
     gjs, sjs = jax.jit(lambda x: opt_jax.gn_step(x, cfg_j))(gj)
     gjd, _ = jax.jit(lambda x: opt_jax.gn_step(x, cfg_j.replace(linear_solver="dense")))(gj)
