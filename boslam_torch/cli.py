@@ -3,8 +3,10 @@
 Usage:
   python -m boslam_torch solve <dataset.g2o> [--gt ground_truth.g2o]
       [--linear-solver dense|schur|schur_cg] [--packed] [--optimizer gn|lm]
+      [--pgo-init [--pgo-lm-rounds 2]] [--save state.npz] [--resume state.npz]
       [--iters N] [--device cuda|cpu]
   python -m boslam_torch synth --poses 300 --out /tmp/synth.g2o
+  python -m boslam_torch bench <dataset.g2o> [--iters 50] [--device cuda|cpu]
 
 The solve prints a per-iteration chi2 table.  ``--device`` defaults to
 ``cuda`` and fails on a machine without it.  GN under ``--linear-solver
@@ -12,8 +14,9 @@ schur`` takes the whole-step kernel on the card, the unfused path on the
 CPU.  ``--linear-solver schur_cg`` runs the flat Schur+PCG path;
 ``--packed`` the dual-packed Schur+PCG scale path (``solve_packed``), which
 reads the CG, preconditioner, GNC and ``--lm-split`` flags.  The windowed
-gather is set through the API (``SolverConfig(gather="windowed")``), as in
-the JAX package.
+gather and ``two_level_cycle`` are set through the API
+(``SolverConfig(gather="windowed")``), as in the JAX package.  ``bench``
+times three solves after a first one and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -24,19 +27,50 @@ import sys
 import time
 
 
-def cmd_solve(args) -> int:
-    import numpy as np
-    import torch
+def _lm_split_arg(value: str):
+    if value == "auto":
+        return value
+    try:
+        return int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected 'auto' or an integer slot cap, got {value!r}")
 
+
+def _add_solver_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--optimizer", choices=["gn", "lm"], default="gn")
+    p.add_argument("--robust", choices=["threshold", "huber", "none"], default="threshold")
+    p.add_argument("--kernel-threshold", type=float, default=1.0)
+    p.add_argument("--damping", type=float, default=0.01)
+    p.add_argument("--linear-solver", choices=["dense", "schur", "schur_cg"], default="dense")
+    p.add_argument("--packed", action="store_true",
+                   help="dual-packed Schur+PCG layout (the large-scale path)")
+    p.add_argument("--cg-iters", type=int, default=100)
+    p.add_argument("--cg-tol", type=float, default=1e-5)
+    p.add_argument("--cg-restarts", type=int, default=8,
+                   help="Krylov restarts absorbed per CG solve on f32 breakdown events")
+    p.add_argument("--cg-warm-start", action="store_true",
+                   help="warm-start CG from the previous outer delta (packed)")
+    p.add_argument("--preconditioner", choices=["auto", "block_jacobi", "btridiag", "bband",
+                                                "two_level"], default="auto",
+                   help="bband is not ported yet (packed path)")
+    p.add_argument("--coarse-q", type=int, default=0,
+                   help="two_level: poses per coarse aggregate (0 = auto)")
+    p.add_argument("--gnc-kt0", type=float, default=0.0,
+                   help="graduated non-convexity: initial robust threshold (0 = off), "
+                        "annealed to --kernel-threshold over --gnc-iters outers (packed)")
+    p.add_argument("--gnc-iters", type=int, default=0)
+    p.add_argument("--lm-split", default="auto", type=_lm_split_arg,
+                   help="packed path: landmark-grid slot cap ('auto' | 0 = off | int cap)")
+    p.add_argument("--textbook-kernel", action="store_true",
+                   help="weight H by the robust weight too (no b-side-only quirk)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+
+
+def _cfg_from_args(args):
     from boslam_torch.config import SolverConfig
-    from boslam_torch.graph.build import build_graph
-    from boslam_torch.io.g2o import parse_g2o, write_g2o
-    from boslam_torch.metrics import ate_metrics, match_gt_landmarks, match_gt_poses
-    from boslam_torch.solver.optimizer import solve, solve_packed
 
-    parsed = parse_g2o(args.dataset)
-    graph, meta = build_graph(parsed, init=args.init, device=args.device)
-    cfg = SolverConfig(
+    return SolverConfig(
         iters=args.iters,
         optimizer=args.optimizer,
         robust=args.robust,
@@ -48,21 +82,71 @@ def cmd_solve(args) -> int:
         cg_restarts=args.cg_restarts,
         cg_warm_start=args.cg_warm_start,
         preconditioner=args.preconditioner,
+        coarse_q=args.coarse_q,
         gnc_kt0=args.gnc_kt0,
         gnc_anneal_iters=args.gnc_iters,
         reference_kernel_quirk=not args.textbook_kernel,
         lm_split=args.lm_split,
     )
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cmd_solve(args) -> int:
+    import numpy as np
+
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.io.g2o import parse_g2o, write_g2o
+    from boslam_torch.metrics import ate_metrics, match_gt_landmarks, match_gt_poses
+    from boslam_torch.solver.optimizer import solve, solve_packed
+
+    parsed = parse_g2o(args.dataset)
+    graph, meta = build_graph(parsed, init=args.init, device=args.device)
+    cfg = _cfg_from_args(args)
     print(
         f"loaded {graph.n_poses} poses, {graph.n_landmarks} landmarks, "
         f"{graph.n_bearing} bearing + {graph.n_odometry} odometry edges; "
         f"gauge pose id {meta.fixed_pose_id}; device {graph.device}",
         file=sys.stderr,
     )
+    if args.pgo_init:
+        from boslam_torch.init.pose_graph import pgo_initialize
+
+        graph = pgo_initialize(graph, landmark_rounds=args.pgo_lm_rounds)
+        print("pose-graph init applied (rotation averaging + linear "
+              "translation + re-triangulation)", file=sys.stderr)
+
+    start_iter, lam0, dp0 = 0, None, None
+    if args.resume:
+        from boslam_torch.io.checkpoint import load_npz
+
+        try:
+            graph, meta, start_iter, lam0, dp0 = load_npz(args.resume, graph, meta)
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        remaining = max(0, args.iters - start_iter)
+        print(
+            f"resumed from {args.resume} at iteration {start_iter}"
+            + (f" (lm lambda {lam0:g})" if lam0 is not None else "")
+            + f"; {remaining} iterations remain",
+            file=sys.stderr,
+        )
+        cfg = cfg.replace(iters=remaining)
+        if remaining == 0:
+            print("checkpoint already past --iters; nothing to do", file=sys.stderr)
+
     t0 = time.perf_counter()
-    g2, stats = (solve_packed if args.packed else solve)(graph, cfg)
-    if graph.device.type == "cuda":
-        torch.cuda.synchronize(graph.device)
+    if args.packed:
+        g2, stats = solve_packed(graph, cfg, lam0=lam0, dp0=dp0, start_iter=start_iter)
+    else:
+        g2, stats = solve(graph, cfg, lam0=lam0)
+    _sync(graph.device)
     wall = time.perf_counter() - t0
 
     st = {k: v.cpu().numpy() for k, v in stats.items()}
@@ -86,16 +170,17 @@ def cmd_solve(args) -> int:
         write_g2o(args.out, meta.pose_ids, poses, meta.lm_ids, np.asarray(landmarks),
                   parsed=parsed, fixed_pose_id=meta.fixed_pose_id)
         print(f"optimized state written to {args.out}", file=sys.stderr)
+    if args.save:
+        from boslam_torch.io.checkpoint import save_npz
+
+        # the damping of the next LM trial, so that a resumed run repeats
+        # the uninterrupted one; the packed path's last outer delta makes a
+        # resumed cg_warm_start run iteration-exact
+        lam_final = float(st["lam_final"]) if cfg.optimizer == "lm" else None
+        save_npz(args.save, g2, meta, iteration=start_iter + cfg.iters, lm_lambda=lam_final,
+                 dp=st.get("dp_final"))
+        print(f"checkpoint written to {args.save}", file=sys.stderr)
     return 0
-
-
-def _lm_split_arg(value: str):
-    if value == "auto":
-        return value
-    try:
-        return int(value)
-    except ValueError:
-        raise argparse.ArgumentTypeError(f"expected 'auto' or an integer slot cap, got {value!r}")
 
 
 def cmd_synth(args) -> int:
@@ -113,6 +198,43 @@ def cmd_synth(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """One ``solve`` (kernel build and first run), then the best of three,
+    each ending in a wait for the card; one JSON line with the JAX CLI's
+    keys.  As in the JAX CLI, the flat ``solve`` runs (``--packed`` is not
+    read here)."""
+    import numpy as np
+
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.io.g2o import parse_g2o
+    from boslam_torch.solver.optimizer import solve
+
+    parsed = parse_g2o(args.dataset)
+    graph, _ = build_graph(parsed, init=args.init, device=args.device)
+    cfg = _cfg_from_args(args)
+    t0 = time.perf_counter()
+    _, stats = solve(graph, cfg)
+    _sync(graph.device)
+    first_wall = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solve(graph, cfg)
+        _sync(graph.device)
+        times.append(time.perf_counter() - t0)
+    print(json.dumps({
+        "n_poses": graph.n_poses,
+        "n_landmarks": graph.n_landmarks,
+        "n_edges": graph.n_bearing + graph.n_odometry,
+        "iters": cfg.iters,
+        "compile_plus_run_s": round(first_wall, 4),
+        "best_run_s": round(min(times), 4),
+        "iters_per_s": round(cfg.iters / min(times), 2),
+        "final_chi2": float(np.asarray(stats["chi2_robust"].cpu())[-1]),
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="boslam_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -122,33 +244,20 @@ def main(argv=None) -> int:
     ps.add_argument("dataset")
     ps.add_argument("--gt", default=None, help="ground-truth g2o for ATE")
     ps.add_argument("--init", choices=["auto", "triangulate", "file"], default="auto")
+    ps.add_argument("--pgo-init", action="store_true",
+                    help="rotation-averaging + linear-translation pose-graph "
+                         "initialization before the solve (re-triangulates "
+                         "landmarks; boslam_torch/init/pose_graph.py)")
+    ps.add_argument("--pgo-lm-rounds", type=int, default=0,
+                    help="virtual-closure (landmark re-observation) rounds "
+                         "of the linear init (scale problems: 2)")
     ps.add_argument("--out", default=None, help="write optimized g2o")
-    ps.add_argument("--iters", type=int, default=50)
-    ps.add_argument("--optimizer", choices=["gn", "lm"], default="gn")
-    ps.add_argument("--robust", choices=["threshold", "huber", "none"], default="threshold")
-    ps.add_argument("--kernel-threshold", type=float, default=1.0)
-    ps.add_argument("--damping", type=float, default=0.01)
-    ps.add_argument("--linear-solver", choices=["dense", "schur", "schur_cg"], default="dense")
-    ps.add_argument("--packed", action="store_true",
-                    help="dual-packed Schur+PCG layout (the large-scale path)")
-    ps.add_argument("--cg-iters", type=int, default=100)
-    ps.add_argument("--cg-tol", type=float, default=1e-5)
-    ps.add_argument("--cg-restarts", type=int, default=8,
-                    help="Krylov restarts absorbed per CG solve on f32 breakdown events")
-    ps.add_argument("--cg-warm-start", action="store_true",
-                    help="warm-start CG from the previous outer delta (packed)")
-    ps.add_argument("--preconditioner", choices=["auto", "block_jacobi", "btridiag", "bband",
-                                                 "two_level"], default="auto",
-                    help="bband and two_level are not ported yet (packed path)")
-    ps.add_argument("--gnc-kt0", type=float, default=0.0,
-                    help="graduated non-convexity: initial robust threshold (0 = off), "
-                         "annealed to --kernel-threshold over --gnc-iters outers (packed)")
-    ps.add_argument("--gnc-iters", type=int, default=0)
-    ps.add_argument("--lm-split", default="auto", type=_lm_split_arg,
-                    help="packed path: landmark-grid slot cap ('auto' | 0 = off | int cap)")
-    ps.add_argument("--textbook-kernel", action="store_true",
-                    help="weight H by the robust weight too (no b-side-only quirk)")
-    ps.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ps.add_argument("--save", default=None, help="write npz checkpoint")
+    ps.add_argument("--resume", default=None,
+                    help="resume from an npz checkpoint: restores the state, "
+                         "the iteration counter (runs the remaining --iters), "
+                         "and the LM damping")
+    _add_solver_args(ps)
     ps.set_defaults(fn=cmd_solve)
 
     pg = sub.add_parser("synth", help="generate a synthetic sequence")
@@ -158,6 +267,12 @@ def main(argv=None) -> int:
     pg.add_argument("--loop-closures", type=int, default=0)
     pg.add_argument("--out", required=True)
     pg.set_defaults(fn=cmd_synth)
+
+    pb = sub.add_parser("bench", help="time a solve")
+    pb.add_argument("dataset")
+    pb.add_argument("--init", choices=["auto", "triangulate", "file"], default="auto")
+    _add_solver_args(pb)
+    pb.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -2,8 +2,8 @@
 
 Same fields and defaults as the JAX package, so a configuration means the
 same thing in both.  Fields whose code paths the port does not carry yet
-(the two_level and bband preconditioners' knobs, bf16 coupling storage,
-the Cholesky backend choice, f64) are kept for that parity;
+(the bband preconditioner's knobs, bf16 coupling storage, the Cholesky
+backend choice, f64) are kept for that parity;
 ``check_ported`` rejects any non-default value of them, so none is
 accepted and then ignored.  As in the JAX package, the packed-path fields
 (GNC, ``cg_warm_start``, ``gather``, ``lm_split``) are read by
@@ -17,8 +17,7 @@ import dataclasses
 import numpy as np
 
 UNPORTED_FIELDS = frozenset((
-    "coarse_q", "two_level_cycle", "band_width", "band_group", "coupling_dtype",
-    "cholesky_backend", "dtype",
+    "band_width", "band_group", "coupling_dtype", "cholesky_backend", "dtype",
 ))
 
 
@@ -44,21 +43,21 @@ class SolverConfig:
     # --- linear solver ---
     # "dense": Cholesky of the full gauge-fixed H; "schur": landmark
     # elimination + Cholesky of the reduced pose system; "schur_cg":
-    # matrix-free PCG (not ported yet).
+    # matrix-free PCG.
     linear_solver: str = "dense"  # "dense" | "schur" | "schur_cg"
     cg_iters: int = 100
     cg_tol: float = 1e-5
     cg_restarts: int = 8
-    preconditioner: str = "auto"
-    coarse_q: int = 0
-    two_level_cycle: str = "additive"
+    preconditioner: str = "auto"  # "auto" | "block_jacobi" | "btridiag" | "two_level" | "bband"
+    coarse_q: int = 0  # two_level: poses per coarse aggregate (0 = ~sqrt(NP) in [8, 128])
+    two_level_cycle: str = "additive"  # two_level: "additive" | "vcycle"
     band_width: int = 8
     band_group: int = 0
     btridiag_block: int = 0
     cg_warm_start: bool = False
     matvec_row_chunk: int = 0
 
-    # --- packed-path knobs (not ported yet) ---
+    # --- packed-path knobs (coupling_dtype not ported yet) ---
     gather: str = "auto"
     coupling_dtype: str = "float32"
     lm_split: "str | int" = "auto"

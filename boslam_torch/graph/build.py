@@ -31,15 +31,14 @@ def build_graph(
     ``init``: "triangulate" (landmarks are the ids observed by bearing
     edges, initialized by triangulation), "file" (VERTEX_XY records),
     "auto" ("file" when VERTEX_XY records exist, else "triangulate").
-    "pose_graph" is not ported yet.  ``device`` defaults to ``cuda``.
+    Pose-graph initialization is applied after the build, by
+    ``init.pose_graph.pgo_initialize``.  ``device`` defaults to ``cuda``.
     """
     device = resolve_device(device)
     edges = parsed
 
     if init == "auto":
         init = "file" if len(parsed.lm_ids) else "triangulate"
-    if init == "pose_graph":
-        raise NotImplementedError("pose-graph initialization is not ported yet")
 
     pose_ids = parsed.pose_ids
     pose_id_to_ix = {pid: ix for ix, pid in enumerate(pose_ids)}

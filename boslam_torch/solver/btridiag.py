@@ -199,12 +199,13 @@ def btridiag_solve(factor: BTFactor, rhs: torch.Tensor) -> torch.Tensor:
 
 
 def btridiag_dense(diag: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
-    """Materialize T as a dense [3N, 3N] matrix (tests only)."""
+    """Materialize T as a dense [3N, 3N] matrix: the dense coarse level of
+    ``two_level`` and the tests.  Block (i, j) is written through a view of
+    T's block diagonals, with no per-block launch."""
     N = diag.shape[0]
-    T = torch.zeros((3 * N, 3 * N), dtype=diag.dtype, device=diag.device)
-    for i in range(N):
-        T[3 * i:3 * i + 3, 3 * i:3 * i + 3] += diag[i]
-    for i in range(N - 1):
-        T[3 * i:3 * i + 3, 3 * i + 3:3 * i + 6] += upper[i]
-        T[3 * i + 3:3 * i + 6, 3 * i:3 * i + 3] += upper[i].T
-    return T
+    T = torch.zeros((N, 3, N, 3), dtype=diag.dtype, device=diag.device)
+    T.diagonal(dim1=0, dim2=2).copy_(diag.permute(1, 2, 0))
+    if N > 1:
+        T.diagonal(offset=1, dim1=0, dim2=2).copy_(upper.permute(1, 2, 0))
+        T.diagonal(offset=-1, dim1=0, dim2=2).copy_(upper.permute(2, 1, 0))
+    return T.reshape(3 * N, 3 * N)

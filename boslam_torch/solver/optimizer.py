@@ -126,8 +126,9 @@ def solve_loop(graph: FactorGraph, cfg: SolverConfig, lam0: torch.Tensor | None 
     """Run ``cfg.iters`` optimizer iterations on the graph's device.
 
     Returns the optimized graph and per-iteration stats (each value a
-    tensor with a leading ``iters`` axis).  ``lam0`` overrides the initial
-    LM damping.
+    tensor with a leading ``iters`` axis; under LM also ``lam_final``, the
+    next trial's damping, which a checkpoint saves).  ``lam0`` overrides
+    the initial LM damping.
     """
     _check_ported(cfg)
     per_iter = []
@@ -152,7 +153,9 @@ def solve_loop(graph: FactorGraph, cfg: SolverConfig, lam0: torch.Tensor | None 
     for _ in range(cfg.iters):
         g, lam, stats = lm_step(g, lam, cfg, band)
         per_iter.append(stats)
-    return g, _stack(per_iter)
+    stats = _stack(per_iter)
+    stats["lam_final"] = lam
+    return g, stats
 
 
 def solve(graph: FactorGraph, cfg: SolverConfig, lam0: float | None = None):

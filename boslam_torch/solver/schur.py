@@ -9,8 +9,9 @@ S = Hpp - Hpl Hll^-1 Hlp (3*NP square) is solved
   otherwise by materializing S and the masked solve of the dense path;
 - or matrix-free (``"schur_cg"``) by preconditioned CG (``pcg``), where S
   is only applied (``s_matvec``: gathers, small batched products and
-  segment sums) and the preconditioner is block-Jacobi or the
-  block-tridiagonal chain solve (``solver/btridiag.py``).
+  segment sums) and the preconditioner is block-Jacobi, the
+  block-tridiagonal chain solve (``solver/btridiag.py``) or the two-level
+  chain scheme (``solver/two_level.py``).
 
 ``pcg`` is also the inner solver of the packed path (``schur_packed.py``).
 """
@@ -185,7 +186,9 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     callable r -> M^-1 r.  ``x0`` warm-starts (default zeros).  Returns
     (x, n_iters, final rel. residual^2, breakdown, info): the first four as
     the JAX package's ``pcg`` returns them, as device tensors; ``info`` the
-    host counts {"matvecs", "polls"} of this call.
+    host counts {"matvecs", "polls"} of this call and "events", the number
+    of breakdown events (restarts, and the one that stopped the loop), a
+    device tensor.
 
     Breakdown handling is the JAX package's: a non-positive curvature
     (p^T A p <= 0) or indefinite preconditioner apply (r^T z <= 0) restarts
@@ -278,7 +281,7 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     breakdown = nbrk > 0
     x_out = torch.where(breakdown, x_best, x)
     rr_out = torch.where(breakdown, rr_best, rr)
-    return x_out, k, rr_out / b2, breakdown, {"matvecs": matvecs, "polls": polls}
+    return x_out, k, rr_out / b2, breakdown, {"matvecs": matvecs, "polls": polls, "events": nbrk}
 
 
 def flat_chain_band(blocks: SchurBlocks, g: FactorGraph) -> torch.Tensor:
@@ -291,25 +294,29 @@ def flat_chain_band(blocks: SchurBlocks, g: FactorGraph) -> torch.Tensor:
 
 def _flat_preconditioner(blocks: SchurBlocks, g: FactorGraph, cfg: SolverConfig,
                          mask: torch.Tensor):
-    """PCG preconditioner of the flat path: block-Jacobi diag(S), or the
-    PD-clamped block-tridiagonal chain solve.  "auto" takes the chain solve
-    up to 32768 poses; "bband" maps to block-Jacobi, as in the JAX package;
-    "two_level" is not ported yet."""
+    """PCG preconditioner of the flat path: block-Jacobi diag(S), the
+    PD-clamped block-tridiagonal chain solve, or the two-level chain scheme
+    (``solver/two_level.py``).  "auto" takes the chain solve up to 32768
+    poses; "bband" maps to block-Jacobi, as in the JAX package."""
     NP_ = g.n_poses
     which = cfg.preconditioner
     if which == "auto":
         which = "btridiag" if 1 < NP_ <= 32768 else "block_jacobi"
     if which not in ("block_jacobi", "bband", "btridiag", "two_level"):
         raise ValueError(f"unknown preconditioner {cfg.preconditioner!r}")
-    if which == "two_level":
-        raise NotImplementedError("the two_level preconditioner is not ported yet")
     eye3 = torch.eye(3, dtype=blocks.Hpp_diag.dtype, device=g.device)
     d = mask[..., None] * s_diag_blocks(blocks, g) + (1.0 - mask[..., None]) * eye3
     if which in ("block_jacobi", "bband") or NP_ <= 1:
         return _inv3x3(d)
+    band = flat_chain_band(blocks, g) * (mask[:-1, :, None] * mask[1:, :, None])
+    if which == "two_level":
+        from boslam_torch.solver.two_level import aggregate_size, two_level_factor, two_level_solve
+
+        factor = two_level_factor(d, band, aggregate_size(cfg.coarse_q, NP_), mask,
+                                  cycle=cfg.two_level_cycle)
+        return lambda r: two_level_solve(factor, r)
     from boslam_torch.solver.btridiag import btridiag_factor, btridiag_solve
 
-    band = flat_chain_band(blocks, g) * (mask[:-1, :, None] * mask[1:, :, None])
     # clamp_band < 1/2: provably PD scaled factorization (solver/btridiag.py)
     factor = btridiag_factor(d, band, clamp_band=0.4999)
     return lambda r: btridiag_solve(factor, r)
@@ -323,6 +330,7 @@ def cg_stats(n_iters, rel_res2, breakdown, info, device) -> dict:
         "cg_breakdown": breakdown,
         "cg_matvecs": torch.full((), info["matvecs"], dtype=torch.int32, device=device),
         "cg_polls": torch.full((), info["polls"], dtype=torch.int32, device=device),
+        "cg_breakdown_events": info["events"],
     }
 
 

@@ -262,27 +262,35 @@ def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverCon
 
     "block_jacobi": exact 3x3 diag(S).  "btridiag" (graphs with an odometry
     chain): T = tridiag(diag(S), chain band) factored by cyclic reduction.
-    "auto": btridiag up to 32768 poses, block-Jacobi above (the JAX
-    package's rule, measured on its TPU).  The fixed pose's block is pinned
-    to the identity and its band entries zeroed, as the masked matvec.
-    "bband" and "two_level" are not ported yet.
+    "two_level": the two-level chain scheme over the same T
+    (``solver/two_level.py``).  "auto": btridiag up to 32768 poses,
+    block-Jacobi above (the JAX package's rule, measured on its TPU).  The
+    fixed pose's block is pinned to the identity and its band entries
+    zeroed, as the masked matvec.  Without a chain every choice is
+    block-Jacobi.  "bband" is not ported yet.
     """
     NP_ = blocks.Hpp_diag.shape[0]
     has_chain = pk.chain_len > 0 and NP_ > 1
     which = cfg.preconditioner
     if which == "auto":
         which = "btridiag" if has_chain and NP_ <= 32768 else "block_jacobi"
-    if which in ("bband", "two_level"):
-        raise NotImplementedError(f"the {which} preconditioner is not ported yet")
-    if which not in ("block_jacobi", "btridiag"):
+    if which == "bband":
+        raise NotImplementedError("the bband preconditioner is not ported yet")
+    if which not in ("block_jacobi", "btridiag", "two_level"):
         raise ValueError(f"unknown preconditioner {cfg.preconditioner!r}")
     eye3 = torch.eye(3, dtype=blocks.Hpp_diag.dtype, device=blocks.Hpp_diag.device)
     d = mask[..., None] * packed_s_diag(blocks, pk) + (1.0 - mask[..., None]) * eye3
     if which == "block_jacobi" or not has_chain:
         return _inv3x3(d)
+    band = _chain_band(blocks, pk, NP_) * (mask[:-1, :, None] * mask[1:, :, None])
+    if which == "two_level":
+        from boslam_torch.solver.two_level import aggregate_size, two_level_factor, two_level_solve
+
+        factor = two_level_factor(d, band, aggregate_size(cfg.coarse_q, NP_), mask,
+                                  cycle=cfg.two_level_cycle)
+        return lambda r: two_level_solve(factor, r)
     from boslam_torch.solver.btridiag import btridiag_factor, btridiag_solve
 
-    band = _chain_band(blocks, pk, NP_) * (mask[:-1, :, None] * mask[1:, :, None])
     if cfg.btridiag_block and NP_ > cfg.btridiag_block:
         # optional chain cutting into independent sub-chains (legacy knob)
         i = torch.arange(NP_ - 1, device=band.device)

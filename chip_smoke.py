@@ -27,6 +27,15 @@ gather="windowed") on 10k and 100k corridor graphs, its launches held to
 5 + 2 per CG matvec per outer iteration and its chi2 to the CPU run and
 the card's plain-gather run; and, on a 10k default walk whose grids the
 planner refuses, packed GN, packed LM, flat schur_cg and a GNC LM run.
+The two-level preconditioner runs on the 10k corridor (both cycles, held
+to the CPU run) and on the 100k corridor beside block-Jacobi (CG
+breakdowns, iterations, ms and memory per outer iteration).
+
+Then the survey-scale path: pgo_initialize and coarse_correct on a 10k
+walk with 100 loop closures, each held against the CPU's run (the poses of
+the init to the bit), and packed GNC LM under two_level from there; a
+resumed gn-fused run (5, save_npz, load_npz, 5) against 10 straight, to
+the bit; and ``python -m boslam_torch bench`` as a subprocess.
 
 Prints the card, the build, one line per check, then a JSON line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  Any failed
@@ -64,6 +73,15 @@ STALL_SEED = 0  # driven too: a failed step must keep the state
 MID = (10000, 3900, 2, 10**9)
 BIG = (100000, 39000, 3, 10**9)
 WALK = (10000, 3900, 3)
+# The survey phase: pose-graph init, coarse correction and GNC LM under
+# two_level on a default walk with 100 loop closures (n_poses, n_landmarks,
+# seed, loop_closures), the JAX package's 10k sizing of both host steps
+SURVEY = (10000, 3900, 3, 100)
+# The coarse correction's cost trace on the card against the CPU run from
+# the same state: twice the largest gap that reordering the f32
+# triangulation's sums alone gives on the CPU at SURVEY's size (4.7e-3 over
+# 10 orders, tools/port_coarse_scan.py)
+COARSE_RTOL = 1e-2
 # Iterations held against the CPU run on the walk: 0 at rtol 1e-5 and 1 (the
 # first whole step) at 2e-3.  Past the first step the trace is decided by
 # rounding: two orderings of the same sums on the CPU part by up to 2.7e-3
@@ -71,6 +89,11 @@ WALK = (10000, 3900, 3)
 # 10 iterations (tools/port_packed_scan.py), and on the card the walk's
 # segment sums run with atomics, so the later gaps change from run to run.
 WALK_HELD = 2
+# Iterations of two_level on the 10k corridor held against the CPU run: the
+# CPU's own windowed and take runs stay within 8.6e-5 over all 10 additive
+# iterations, and within 4.3e-4 over the first 9 V-cycle iterations, the
+# 10th parting by 5.1e-3 (tools/port_packed_scan.py --preconditioner two_level)
+TWO_LEVEL_HELD = {"additive": 10, "vcycle": 9}
 DEV = "cuda"
 
 
@@ -779,6 +802,29 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
         device_busy_share=prof["device_busy_share"], profile=prof, **_cg_summary(st2, cfg, secs2))))
     print(f"phase packed-windowed 10k: {time.perf_counter() - t0:.1f} s wall")
 
+    # ---- phase 2b: the same runs under the two-level preconditioner, both cycles ----
+    t0 = time.perf_counter()
+    for cycle in ("additive", "vcycle"):
+        label = f"two_level {cycle} packed-windowed 10k"
+        cfg_tl = cfg.replace(preconditioner="two_level", two_level_cycle=cycle)
+        st_cpu_tl = _stats(solve_packed(g_cpu, cfg_tl)[1])
+        _, st_tl, counts_tl, secs_tl = run_packed(torch, solve_packed, g, cfg_tl, counters, label,
+                                                  True)
+        launches += counts_tl["windowed_take"]
+        c_tl = st_tl["chi2_robust"]
+        rel_tl = _hold_trace(c_tl, st_cpu_tl["chi2_robust"], TWO_LEVEL_HELD[cycle], label, "CPU")
+        if not c_tl[-1] < c_tl[0]:
+            raise AssertionError(f"{label}: chi2 {c_tl.tolist()} did not descend")
+        print(f"{label}: " + json.dumps(dict(
+            launches=counts_tl["windowed_take"], launches_expected=_packed_launches(st_tl, "gn"),
+            held_iterations=TWO_LEVEL_HELD[cycle], rel_vs_cpu=rel_tl.tolist(),
+            chi2_first=float(c_tl[0]), chi2_last=float(c_tl[-1]),
+            chi2_last_btridiag=float(st2["chi2_robust"][-1]),
+            cg_iters_btridiag=st2["cg_iters"].tolist(),
+            breakdown_events=st_tl["cg_breakdown_events"].tolist(),
+            **_cg_summary(st_tl, cfg_tl, secs_tl))))
+    print(f"phase two_level 10k: {time.perf_counter() - t0:.1f} s wall")
+
     # ---- phase 3: packed-windowed 100k corridor, GN, "auto" = block-Jacobi ----
     t0 = time.perf_counter()
     g = g100_cpu.to(DEV)
@@ -804,8 +850,36 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
         breakdown=st["cg_breakdown"].tolist(), breakdown_take=st_t["cg_breakdown"].tolist(),
         ms_per_outer_take=secs_t / cfg.iters * 1e3, max_memory_allocated=peak,
         **_cg_summary(st, cfg, secs))))
-    del g, g2, g100_cpu, pk100
     print(f"phase packed-windowed 100k: {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- phase 3b: two_level on the 100k corridor beside block-Jacobi ----
+    t0 = time.perf_counter()
+    label = "two_level packed-windowed 100k"
+    cfg_tl = cfg.replace(preconditioner="two_level")
+    torch.cuda.reset_peak_memory_stats()
+    _, st_tl, counts_tl, secs_tl = run_packed(torch, solve_packed, g, cfg_tl, counters, label, True)
+    peak_tl = torch.cuda.max_memory_allocated()
+    launches += counts_tl["windowed_take"]
+    _, st_tlt, _, secs_tlt = run_packed(torch, solve_packed, g, cfg_tl.replace(gather="take"),
+                                        counters, "two_level packed-take 100k", False)
+    c_tl = st_tl["chi2_robust"]
+    rel_tl = _hold_trace(c_tl, st_tlt["chi2_robust"], 1, label, "take run")
+    if not c_tl[-1] < c_tl[0]:
+        raise AssertionError(f"{label}: chi2 {c_tl.tolist()} did not descend")
+
+    def per_outer(st_, secs_, peak_):
+        return dict(chi2=st_["chi2_robust"].tolist(), breakdown=st_["cg_breakdown"].tolist(),
+                    breakdown_events=st_["cg_breakdown_events"].tolist(),
+                    cg_iters=st_["cg_iters"].tolist(), cg_rel_res2=st_["cg_rel_res2"].tolist(),
+                    ms_per_outer=secs_ / cfg.iters * 1e3, max_memory_allocated=peak_)
+
+    print("100k corridor, two_level vs block-Jacobi: " + json.dumps(dict(
+        launches=counts_tl["windowed_take"], launches_expected=_packed_launches(st_tl, "gn"),
+        rel_vs_take=rel_tl.tolist(), ms_per_outer_take=secs_tlt / cfg.iters * 1e3,
+        two_level=per_outer(st_tl, secs_tl, peak_tl),
+        block_jacobi=per_outer(st, secs, peak))))
+    del g, g2, g100_cpu, pk100
+    print(f"phase two_level 100k: {time.perf_counter() - t0:.1f} s wall")
 
     # ---- phase 4: the default walk (plans refused): packed GN, LM, flat CG, GNC ----
     t0 = time.perf_counter()
@@ -845,6 +919,141 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
         accepted=st["accepted"].astype(int).tolist(), **_cg_summary(st, cfg, secs))))
     print(f"phase default walk: {time.perf_counter() - t0:.1f} s wall")
     return rows[("landmark grid", 3)], launches
+
+
+def _held_coarse(label, info, info_ref):
+    """The coarse correction's trace against a run from the same state on
+    the CPU: the same starting cost, the same first step, a cost that never
+    rises, and the rounds up to the first step choice that differs at
+    COARSE_RTOL.  Each round re-triangulates the landmarks in f32, and the
+    card's sums run in another order than the CPU's: that alone moves a
+    round's cost by up to 4.7e-3 at this size and can turn a later round's
+    accept-or-stop either way (tools/port_coarse_scan.py)."""
+    tr, tr_ref = np.asarray(info["cost_trace"]), np.asarray(info_ref["cost_trace"])
+    same = 0
+    for a, b in zip(info["alphas"], info_ref["alphas"]):
+        if a != b:
+            break
+        same += 1
+    rel = np.abs(tr[:same + 1] - tr_ref[:same + 1]) / tr_ref[:same + 1]
+    if not (tr[0] == tr_ref[0] and same >= 1 and info["alphas"][0] is not None
+            and (rel < COARSE_RTOL).all() and (np.diff(tr) <= 0).all()):
+        raise AssertionError(f"{label}: cost trace {tr.tolist()} alphas {info['alphas']} vs "
+                             f"{tr_ref.tolist()} {info_ref['alphas']} (rel {rel.tolist()})")
+    return same, rel
+
+
+def run_survey_phase(torch, counters, build_graph, generate_sequence, SolverConfig, size=SURVEY):
+    """pgo_initialize (2 landmark rounds) on the card's graph, held against
+    the same call on the CPU's (poses to the bit, landmarks at the
+    triangulation bound); one coarse_correct (seg 64, 3 rounds) from its
+    result, held against the CPU's from the same state; then packed GNC LM
+    under two_level, with the host seconds of each step."""
+    from boslam_torch.init.pose_graph import pgo_initialize
+    from boslam_torch.solver.coarse import coarse_correct
+    from boslam_torch.solver.optimizer import solve_packed
+
+    t0 = time.perf_counter()
+    n_poses, n_landmarks, seed, closures = size
+    g_cpu, _, _ = _corridor(generate_sequence, build_graph, n_poses, n_landmarks, seed, 50,
+                            loop_closures=closures)
+    g = g_cpu.to(DEV)
+    secs = {}
+    t1 = time.perf_counter()
+    gp = pgo_initialize(g, landmark_rounds=2)
+    torch.cuda.synchronize()
+    secs["pgo_card"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    gp_cpu = pgo_initialize(g_cpu, landmark_rounds=2)
+    secs["pgo_cpu"] = time.perf_counter() - t1
+    lm_gap = (gp.landmarks.cpu() - gp_cpu.landmarks).abs()
+    if not (torch.equal(gp.poses.cpu(), gp_cpu.poses) and torch.isfinite(gp.landmarks).all()
+            and bool((lm_gap <= 2e-2 + 1e-3 * gp_cpu.landmarks.abs()).all())):
+        raise AssertionError(f"pgo_initialize: poses equal {torch.equal(gp.poses.cpu(), gp_cpu.poses)}, "
+                             f"landmark gap {lm_gap.max().item():.3e}")
+    t1 = time.perf_counter()
+    gc, info = coarse_correct(gp, seg=64, rounds=3)
+    torch.cuda.synchronize()
+    secs["coarse_card"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    _, info_cpu = coarse_correct(gp.to("cpu"), seg=64, rounds=3)  # from the card's state
+    secs["coarse_cpu"] = time.perf_counter() - t1
+    held, rel = _held_coarse("coarse_correct", info, info_cpu)
+    cfg = SolverConfig(linear_solver="schur_cg", optimizer="lm", iters=10, cg_iters=100,
+                       cg_tol=1e-3, cg_warm_start=True, preconditioner="two_level",
+                       kernel_threshold=100.0, gnc_kt0=1e6, gnc_anneal_iters=30)
+    _, st, counts, secs_lm = run_packed(torch, solve_packed, gc, cfg, counters,
+                                        "GNC LM two_level 10k", False)
+    c = st["chi2_robust"]
+    if not (np.isfinite(c).all() and c[-1] < c[0]):
+        raise AssertionError(f"GNC LM two_level: chi2 {c.tolist()} did not descend")
+    secs["gnc_lm_card"] = secs_lm
+    print(f"survey {n_poses} poses {closures} loop closures: " + json.dumps(dict(
+        graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry], seed=seed,
+        pgo_poses_bitwise_vs_cpu=True, pgo_landmark_gap=lm_gap.max().item(),
+        coarse_cost_trace=info["cost_trace"], coarse_alphas=info["alphas"],
+        coarse_cost_trace_cpu=info_cpu["cost_trace"], coarse_alphas_cpu=info_cpu["alphas"],
+        coarse_rounds_held=held, coarse_rel_vs_cpu=rel.tolist(), launches=counts,
+        chi2=c.tolist(), accepted=st["accepted"].astype(int).tolist(), kt=st["kt"].tolist(),
+        host_seconds=secs, **_cg_summary(st, cfg, secs_lm))))
+    print(f"phase survey: {time.perf_counter() - t0:.1f} s wall")
+
+
+def run_resume_phase(torch, solve, g, cfg, counters, meta):
+    """Resume on the card: gn-fused 10 straight against 5, save_npz,
+    load_npz into a fresh graph, 5 more: the same bits."""
+    import tempfile
+
+    from boslam_torch.io.checkpoint import load_npz, save_npz
+
+    cfg = cfg.replace(iters=10)
+    g10, st10, counts10, _ = _run_path(torch, solve, g, cfg, counters)
+    g5, st5a, _, _ = _run_path(torch, solve, g, cfg.replace(iters=5), counters)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/state.npz"
+        save_npz(path, g5, meta, iteration=5)
+        blank = g.with_state(torch.zeros_like(g.poses), torch.zeros_like(g.landmarks))
+        g_r, _, it, _, _ = load_npz(path, blank, meta)
+    g_r10, st5b, counts5b, _ = _run_path(torch, solve, g_r, cfg.replace(iters=5), counters)
+    trace = np.concatenate([st5a["chi2_robust"], st5b["chi2_robust"]])
+    if not (it == 5 and torch.equal(g_r10.poses, g10.poses)
+            and torch.equal(g_r10.landmarks, g10.landmarks)
+            and np.array_equal(trace, st10["chi2_robust"]) and counts5b["gn_step"] == 5):
+        raise AssertionError(f"resume: chi2 {trace.tolist()} vs {st10['chi2_robust'].tolist()}, "
+                             f"launches {counts5b}")
+    print("resume gn-fused 5 + save_npz + load_npz + 5 vs 10: " + json.dumps(dict(
+        bitwise=True, launches_straight=counts10, launches_resumed=counts5b,
+        chi2_final=float(trace[-1]))))
+
+
+def run_bench_phase(torch, generate_sequence, chi2_fused):
+    """``python -m boslam_torch bench`` on the 301/141 seed-3 graph's g2o,
+    as a subprocess: its one JSON line, and its chi2 against gn-fused's."""
+    import os
+    import tempfile
+
+    from boslam_torch.io.g2o import write_g2o
+
+    t0 = time.perf_counter()
+    ig, _ = generate_sequence(301, 141, seed=SEED)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/ref_size.g2o"
+        write_g2o(path, ig.pose_ids, ig.pose_xyt, ig.lm_ids, ig.lm_xy, parsed=ig,
+                  fixed_pose_id=ig.fixed_pose_id)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        out = subprocess.run([sys.executable, "-m", "boslam_torch", "bench", path, "--linear-solver",
+                              "schur", "--iters", str(ITERS)], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"bench: exit {out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    rec = json.loads(lines[-1])
+    rel = abs(rec["final_chi2"] - chi2_fused) / chi2_fused
+    if not (len(lines) == 1 and rec["iters"] == ITERS and rel < 1e-4):
+        raise AssertionError(f"bench: {out.stdout!r}, gn-fused chi2 {chi2_fused}")
+    print(f"bench (python -m boslam_torch bench, {time.perf_counter() - t0:.1f} s wall): "
+          + lines[-1])
 
 
 def main() -> int:
@@ -1034,6 +1243,11 @@ def main() -> int:
 
     win_row, win_launches = run_scale_phases(torch, wg, counters, solve, generate_sequence,
                                              build_graph, SolverConfig)
+    run_survey_phase(torch, counters, build_graph, generate_sequence, SolverConfig)
+    t0 = time.perf_counter()
+    run_resume_phase(torch, solve, g, cfg_f, counters, meta)
+    print(f"phase resume: {time.perf_counter() - t0:.1f} s wall")
+    run_bench_phase(torch, generate_sequence, float(c[-1]))
 
     kernels = [
         dict(name="cholesky_solve_padded", route="cuda",
@@ -1066,7 +1280,8 @@ def main() -> int:
              bound_ms=win_row["bound_ms"], bound_by=win_row["bound_by"],
              library_ms=win_row["library_ms"], launches_per_call=gather_per_call,
              shape=win_row["shape"],
-             path="packed-windowed 10k + 100k (landmark grid of the 100k corridor)"),
+             path="packed-windowed 10k + 100k, btridiag, two_level and block-Jacobi (landmark "
+                  "grid of the 100k corridor)"),
     ]
     if not all(k["launches"] > 0 and k["launches_per_call"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched: {kernels}")

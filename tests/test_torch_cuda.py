@@ -428,6 +428,48 @@ def test_schur_band_route_matches_dense_route_bitwise(cuda):
     assert ss.fused_schur_solve_blocks.band_launches == before + widest + 1 - band
 
 
+def test_band_route_repeats_bitwise(cuda):
+    """A race probe for the band kernel, for a machine where
+    compute-sanitizer cannot attach: the Schur solve at every band that
+    fits, and the whole step at the closure graph's band, each 200 times
+    from the same inputs with other work on the card in between, give one
+    set of bits."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.ops import cholesky as chol
+    from boslam_torch.ops import gn_step as gs
+    from boslam_torch.ops import schur_solve as ss
+    from boslam_torch.solver import schur
+    from boslam_torch.solver.normal_eq import edge_terms
+
+    g = _graph_seed(301, 141, 3, 0, cuda)
+    cfg = SolverConfig(linear_solver="schur", fused_step="off")
+    pmask = schur._pose_mask(g.n_poses, g.fixed_pose_ix, torch.float32)
+    inputs = schur.fused_schur_inputs(g, cfg, cfg.damping, edge_terms(g, cfg), pmask)
+    noise = torch.randn(4096, 4096, device=cuda)
+    for bt in range(3, 8):
+        if not chol.band_fits(bt, inputs[0].shape[0]):
+            break
+        x0, dl0 = ss.fused_schur_solve_blocks(*inputs, 0.0, bt)
+        for i in range(200):
+            if i % 50 == 0:
+                noise = noise @ noise.T * 1e-4  # other work on the card between launches
+            x, dl = ss.fused_schur_solve_blocks(*inputs, 0.0, bt)
+            assert torch.equal(x, x0) and torch.equal(dl, dl0), (bt, i)
+    g = _graph_seed(301, 141, 16, 4, cuda)
+    cfg = SolverConfig(linear_solver="schur")
+    prep = gs.prep_static(g, gs.tile_band(g))
+    assert prep.band_tiles == 4
+    rows = []
+    for i in range(200):
+        poses, lms = g.poses.clone(), g.landmarks.clone()
+        row = torch.zeros(gs.STATS_WIDTH, device=cuda)
+        gs.GNStepKernel(prep, poses, lms, cfg).step(row)
+        rows.append((poses, lms, row))
+    for poses, lms, row in rows[1:]:
+        assert torch.equal(poses, rows[0][0]) and torch.equal(lms, rows[0][1])
+        assert torch.equal(row, rows[0][2])
+
+
 @pytest.mark.parametrize("n_poses, n_landmarks, seed, loop_closures, band", [
     (301, 141, 3, 0, 3), (301, 141, 16, 4, 4), (301, 141, 0, 4, 4), (512, 300, 3, 0, None)])
 def test_route_of_each_graph(cuda, n_poses, n_landmarks, seed, loop_closures, band):

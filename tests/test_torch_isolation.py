@@ -18,6 +18,8 @@ import boslam_torch.ops.cholesky, boslam_torch.ops.schur_solve, boslam_torch.sol
 import boslam_torch.ops.gn_step, boslam_torch.ops.windowed_gather
 import boslam_torch.graph.packed, boslam_torch.graph.reorder
 import boslam_torch.solver.btridiag, boslam_torch.solver.schur_packed
+import boslam_torch.solver.two_level, boslam_torch.solver.coarse
+import boslam_torch.init.pose_graph, boslam_torch.io.checkpoint
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "boslam" or m.startswith("boslam."))

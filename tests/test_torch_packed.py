@@ -216,8 +216,47 @@ def test_solve_packed_gnc_schedule_and_resume():
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("precond, exc", [("two_level", NotImplementedError),
-                                          ("bband", NotImplementedError),
+@pytest.mark.parametrize("kind, optimizer, cycle", [("corridor", "gn", "additive"),
+                                                    ("corridor", "lm", "vcycle"),
+                                                    ("closures", "gn", "vcycle"),
+                                                    ("closures", "lm", "additive")])
+def test_solve_packed_two_level_matches_jax(kind, optimizer, cycle):
+    """Packed GN and LM under the two-level preconditioner, both cycles, on
+    the corridor and on the 8-closure walk: chi2 at iteration 0 at rtol
+    1e-5, later iterations as test_solve_packed_matches_jax holds them.
+    Neither the corridor's automatic q (32 of 600 poses) nor the walk's
+    ``coarse_q`` 7 (of 300) divides the chain."""
+    g, gj = _graphs(kind)
+    kw = dict(optimizer=optimizer, preconditioner="two_level", two_level_cycle=cycle, iters=5,
+              coarse_q=7 if kind == "closures" else 0)
+    st, st_j = _solve_both(g, gj, **kw)
+    c, c_j = st["chi2_robust"], st_j["chi2_robust"]
+    np.testing.assert_allclose(c[0], c_j[0], rtol=1e-5)
+    held = 5 if optimizer == "gn" else 2
+    np.testing.assert_allclose(c[:held], c_j[:held], rtol=TRACE_RTOL)
+    np.testing.assert_array_equal(st["accepted"][:held], st_j["accepted"][:held])
+    assert np.isfinite(c).all() and st["spd_ok"].all() and (st["cg_iters"] > 0).all()
+
+
+def test_solve_packed_two_level_matches_block_jacobi():
+    """The synthetic counterpart of tests/test_two_level.py's
+    test_solve_packed_two_level_matches_block_jacobi (which reads the absent
+    reference dataset): at the reference dataset's size, 25 packed GN
+    iterations at cg_tol 1e-6 reach the same chi2 under two-level and
+    block-Jacobi PCG within 1e-3 (that test's bound); the port alone."""
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.synth import generate_sequence as generate_sequence_torch
+
+    g = build_graph(generate_sequence_torch(301, 141, seed=3)[0], init="triangulate",
+                    device="cpu")[0]
+    base = SolverConfig(iters=25, linear_solver="schur_cg", cg_iters=150, cg_tol=1e-6)
+    _, s_tl = opt.solve_packed(g, base.replace(preconditioner="two_level"))
+    _, s_bj = opt.solve_packed(g, base.replace(preconditioner="block_jacobi"))
+    a, b = float(s_tl["chi2_robust"][-1]), float(s_bj["chi2_robust"][-1])
+    assert abs(a - b) / b < 1e-3
+
+
+@pytest.mark.parametrize("precond, exc", [("bband", NotImplementedError),
                                           ("jacobi", ValueError)])
 def test_unported_preconditioners_raise(precond, exc):
     g, _ = _graphs("closures")

@@ -131,16 +131,9 @@ def test_lm_few_iterations(linear_solver):
     np.testing.assert_allclose(st["damping"], stj["damping"], rtol=1e-6)
 
 
-def test_unported_options_raise():
-    """schur_cg runs now; its two_level preconditioner is not ported yet."""
-    g, _ = _graphs(0)
-    with pytest.raises(NotImplementedError, match="two_level"):
-        opt.solve(g, SolverConfig(linear_solver="schur_cg", preconditioner="two_level", iters=1))
-
-
 @pytest.mark.parametrize("field, value", [
-    ("dtype", "float64"), ("coarse_q", 16), ("cholesky_backend", "xla"),
-    ("band_width", 4), ("two_level_cycle", "vcycle"), ("coupling_dtype", "bfloat16"),
+    ("dtype", "float64"), ("cholesky_backend", "xla"), ("band_width", 4),
+    ("coupling_dtype", "bfloat16"),
 ])
 @pytest.mark.parametrize("optimizer", ["gn", "lm"])
 def test_unported_fields_raise(field, value, optimizer):
@@ -161,3 +154,24 @@ def test_unported_fields_raise(field, value, optimizer):
         else:
             opt.lm_step(g, torch.ones(()), cfg)
     opt.solve(g, cfg.replace(**{field: getattr(SolverConfig(), field)}))
+
+
+@pytest.mark.parametrize("field, value", [("coarse_q", 16), ("two_level_cycle", "vcycle")])
+@pytest.mark.parametrize("optimizer", ["gn", "lm"])
+def test_two_level_fields_accepted(field, value, optimizer):
+    """The two-level preconditioner's knobs are ported: accepted on every
+    path, read only by the CG paths' "two_level" (the exact Schur solve
+    gives the same bits with or without them, as in the JAX package)."""
+    from boslam_torch.config import UNPORTED_FIELDS
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.synth import generate_sequence as generate_sequence_torch
+
+    assert field not in UNPORTED_FIELDS
+    g, _ = build_graph(generate_sequence_torch(20, 10, seed=0)[0], device="cpu")
+    cfg = SolverConfig(linear_solver="schur", optimizer=optimizer, iters=2)
+    _, st = opt.solve(g, cfg.replace(**{field: value}))
+    _, st0 = opt.solve(g, cfg)
+    assert torch.equal(st["chi2_robust"], st0["chi2_robust"])
+    _, st_cg = opt.solve(g, cfg.replace(linear_solver="schur_cg", preconditioner="two_level",
+                                        **{field: value}))
+    assert torch.isfinite(st_cg["chi2_robust"]).all()

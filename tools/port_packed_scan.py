@@ -5,7 +5,8 @@ of the same sums, and (``--jax``) the JAX package's own runs beside them.
     PYTHONPATH=. JAX_PLATFORMS=cpu python tools/port_packed_scan.py [--jax] [--what ...]
 
 ``corridor``: generate_sequence(10000, 3900, seed, turn_every=10**9) for
-seeds 0-6, GN packed 10 iterations, "auto" (btridiag): windowed against
+seeds 0-6 (``--seeds``), GN packed 10 iterations, "auto" (btridiag) or
+``--preconditioner`` (with ``--two-level-cycle``): windowed against
 take (the windowed path relabels the landmarks, so every landmark-keyed
 sum runs in another order).  ``big``: the 100k corridor, 5 iterations,
 "auto" (block-Jacobi), windowed against take, and the CG breakdown flags.
@@ -68,11 +69,12 @@ def _packed_jax(g, **kw):
     return {k: np.asarray(v) for k, v in st.items()}
 
 
-def corridor(jax):
-    for seed in range(7):
+def corridor(jax, seeds=range(7), **kw):
+    for seed in seeds:
         g = _graph(10000, 3900, seed, turn_every=10**9)
-        w, t = _packed(g, gather="windowed", iters=10), _packed(g, gather="take", iters=10)
-        print(f"corridor 10k seed {seed}: windowed vs take {_rel(w['chi2_robust'], t['chi2_robust'])}; "
+        w = _packed(g, gather="windowed", iters=10, **kw)
+        t = _packed(g, gather="take", iters=10, **kw)
+        print(f"corridor 10k seed {seed} {kw}: windowed vs take {_rel(w['chi2_robust'], t['chi2_robust'])}; "
               f"cg_iters {w['cg_iters'].tolist()}, rel res^2 "
               f"{np.array2string(w['cg_rel_res2'], precision=1, max_line_width=200)}", flush=True)
         if jax and seed in (2, 3):
@@ -81,10 +83,10 @@ def corridor(jax):
                   f"{np.array2string(j['cg_rel_res2'], precision=1, max_line_width=200)}", flush=True)
 
 
-def big(jax):
+def big(jax, seeds=None, **kw):
     g = _graph(100000, 39000, 3, turn_every=10**9)
-    w, t = _packed(g, gather="windowed", iters=5), _packed(g, gather="take", iters=5)
-    print(f"corridor 100k seed 3: windowed vs take {_rel(w['chi2_robust'], t['chi2_robust'])}; "
+    w, t = _packed(g, gather="windowed", iters=5, **kw), _packed(g, gather="take", iters=5, **kw)
+    print(f"corridor 100k seed 3 {kw}: windowed vs take {_rel(w['chi2_robust'], t['chi2_robust'])}; "
           f"cg_iters {w['cg_iters'].tolist()} / {t['cg_iters'].tolist()}, breakdown "
           f"{w['cg_breakdown'].astype(int).tolist()} / {t['cg_breakdown'].astype(int).tolist()}",
           flush=True)
@@ -95,7 +97,7 @@ def big(jax):
               f"{np.asarray(j['cg_breakdown']).astype(int).tolist()}", flush=True)
 
 
-def walk(jax):
+def walk(jax, seeds=None, **kw):
     from boslam_torch.config import SolverConfig
     from boslam_torch.solver.optimizer import solve
 
@@ -112,7 +114,7 @@ def walk(jax):
                   flush=True)
 
 
-def lm(jax):
+def lm(jax, seeds=None, **kw):
     g = _graph(600, 240, 3, turn_every=10**9)
     w, t = _packed(g, gather="windowed", optimizer="lm", iters=5), _packed(g, gather="take",
                                                                            optimizer="lm", iters=5)
@@ -132,10 +134,18 @@ def main():
     ap.add_argument("--what", nargs="+", default=["lm", "corridor", "big", "walk"],
                     choices=["lm", "corridor", "big", "walk"])
     ap.add_argument("--jax", action="store_true", help="run the JAX package beside the port")
+    ap.add_argument("--seeds", type=int, nargs="+", default=list(range(7)),
+                    help="corridor: the seeds to scan")
+    ap.add_argument("--preconditioner", default="auto",
+                    help="corridor, big: the PCG preconditioner")
+    ap.add_argument("--two-level-cycle", default="additive")
     args = ap.parse_args()
     logging.disable(logging.WARNING)
+    kw = {}
+    if args.preconditioner != "auto":
+        kw = dict(preconditioner=args.preconditioner, two_level_cycle=args.two_level_cycle)
     for what in args.what:
-        globals()[what](args.jax)
+        globals()[what](args.jax, seeds=args.seeds, **kw)
 
 
 if __name__ == "__main__":
