@@ -4,6 +4,7 @@ Usage:
   python -m boslam_torch solve <dataset.g2o> [--gt ground_truth.g2o]
       [--linear-solver dense|schur|schur_cg] [--packed] [--optimizer gn|lm]
       [--pgo-init [--pgo-lm-rounds 2]] [--save state.npz] [--resume state.npz]
+      [--render out.png] [--print-state] [--profile DIR] [--interactive]
       [--iters N] [--device cuda|cpu]
   python -m boslam_torch synth --poses 300 --out /tmp/synth.g2o
   python -m boslam_torch bench <dataset.g2o> [--iters 50] [--device cuda|cpu]
@@ -13,15 +14,20 @@ The solve prints a per-iteration chi2 table.  ``--device`` defaults to
 schur`` takes the whole-step kernel on the card, the unfused path on the
 CPU.  ``--linear-solver schur_cg`` runs the flat Schur+PCG path;
 ``--packed`` the dual-packed Schur+PCG scale path (``solve_packed``), which
-reads the CG, preconditioner, GNC and ``--lm-split`` flags.  The windowed
-gather and ``two_level_cycle`` are set through the API
-(``SolverConfig(gather="windowed")``), as in the JAX package.  ``bench``
-times three solves after a first one and prints one JSON line.
+reads the CG, preconditioner (``--band-width``/``--band-group`` for
+bband), GNC, ``--coupling-dtype`` and ``--lm-split`` flags.  The windowed
+gather, ``two_level_cycle`` and ``cholesky_backend`` are set through the
+API (``SolverConfig(gather="windowed")``), as in the JAX package.
+``--render`` writes PNGs of the initial and final states and
+``--interactive`` steps the solve from the keyboard; both need matplotlib.
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the solve.
+``bench`` times three solves after a first one and prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -53,9 +59,13 @@ def _add_solver_args(p: argparse.ArgumentParser) -> None:
                    help="warm-start CG from the previous outer delta (packed)")
     p.add_argument("--preconditioner", choices=["auto", "block_jacobi", "btridiag", "bband",
                                                 "two_level"], default="auto",
-                   help="bband is not ported yet (packed path)")
+                   help="PCG preconditioner (bband: packed path)")
     p.add_argument("--coarse-q", type=int, default=0,
                    help="two_level: poses per coarse aggregate (0 = auto)")
+    p.add_argument("--band-width", type=int, default=8,
+                   help="bband: S offsets 1..w kept exactly")
+    p.add_argument("--band-group", type=int, default=0,
+                   help="bband: poses per super-node (0 = band width)")
     p.add_argument("--gnc-kt0", type=float, default=0.0,
                    help="graduated non-convexity: initial robust threshold (0 = off), "
                         "annealed to --kernel-threshold over --gnc-iters outers (packed)")
@@ -64,6 +74,12 @@ def _add_solver_args(p: argparse.ArgumentParser) -> None:
                    help="packed path: landmark-grid slot cap ('auto' | 0 = off | int cap)")
     p.add_argument("--textbook-kernel", action="store_true",
                    help="weight H by the robust weight too (no b-side-only quirk)")
+    p.add_argument("--autodiff-jacobians", action="store_true",
+                   help="Jacobians by torch.func.jacfwd instead of the closed forms "
+                        "(the reference's numerical-Jacobian verification mode)")
+    p.add_argument("--coupling-dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="packed path: storage dtype of the Schur coupling blocks "
+                        "(bfloat16 halves their bytes; f32 sums)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
 
@@ -82,11 +98,15 @@ def _cfg_from_args(args):
         cg_restarts=args.cg_restarts,
         cg_warm_start=args.cg_warm_start,
         preconditioner=args.preconditioner,
+        band_width=args.band_width,
+        band_group=args.band_group,
         coarse_q=args.coarse_q,
         gnc_kt0=args.gnc_kt0,
         gnc_anneal_iters=args.gnc_iters,
         reference_kernel_quirk=not args.textbook_kernel,
+        use_autodiff_jacobians=args.autodiff_jacobians,
         lm_split=args.lm_split,
+        coupling_dtype=args.coupling_dtype,
     )
 
 
@@ -97,6 +117,15 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _have_matplotlib(flag: str) -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"error: {flag} needs matplotlib, which is not installed", file=sys.stderr)
+        return False
+    return True
+
+
 def cmd_solve(args) -> int:
     import numpy as np
 
@@ -105,6 +134,10 @@ def cmd_solve(args) -> int:
     from boslam_torch.metrics import ate_metrics, match_gt_landmarks, match_gt_poses
     from boslam_torch.solver.optimizer import solve, solve_packed
 
+    if args.render and not _have_matplotlib("--render"):
+        return 2
+    if args.interactive and not _have_matplotlib("--interactive"):
+        return 2
     parsed = parse_g2o(args.dataset)
     graph, meta = build_graph(parsed, init=args.init, device=args.device)
     cfg = _cfg_from_args(args)
@@ -141,13 +174,38 @@ def cmd_solve(args) -> int:
         if remaining == 0:
             print("checkpoint already past --iters; nothing to do", file=sys.stderr)
 
+    if args.render:
+        from boslam_torch.viz.draw import save_render
+
+        save_render(
+            args.render.replace(".png", "_initial.png"),
+            graph.poses.cpu().numpy(),
+            graph.landmarks.cpu().numpy(),
+            bound=meta.bound,
+            bearings=(graph.b_pose.cpu().numpy(), graph.b_meas.cpu().numpy()),
+            odometries=(graph.o_src.cpu().numpy(), graph.o_meas.cpu().numpy()),
+            iteration=0,
+            max_iterations=cfg.iters,
+        )
+
+    if args.interactive:
+        return _interactive_loop(graph, meta, cfg)
+
+    profiling = contextlib.nullcontext()
+    if args.profile:
+        from boslam_torch.utils.profiling import trace
+
+        profiling = trace(args.profile)
     t0 = time.perf_counter()
-    if args.packed:
-        g2, stats = solve_packed(graph, cfg, lam0=lam0, dp0=dp0, start_iter=start_iter)
-    else:
-        g2, stats = solve(graph, cfg, lam0=lam0)
-    _sync(graph.device)
+    with profiling:
+        if args.packed:
+            g2, stats = solve_packed(graph, cfg, lam0=lam0, dp0=dp0, start_iter=start_iter)
+        else:
+            g2, stats = solve(graph, cfg, lam0=lam0)
+        _sync(graph.device)
     wall = time.perf_counter() - t0
+    if args.profile:
+        print(f"profile trace written to {args.profile}", file=sys.stderr)
 
     st = {k: v.cpu().numpy() for k, v in stats.items()}
     print("iter  chi2_robust  chi2_bearing  chi2_odom  damping  accepted")
@@ -162,10 +220,20 @@ def cmd_solve(args) -> int:
 
     poses = g2.poses.cpu().numpy()
     landmarks = g2.landmarks.cpu().numpy()
+    if args.print_state:
+        from boslam_torch.graph.data import print_full_state
+
+        print_full_state(poses, landmarks)
     if args.gt:
         gt = parse_g2o(args.gt)
         m = ate_metrics(poses, match_gt_poses(meta, gt), landmarks, match_gt_landmarks(meta, gt))
         print("ATE vs ground truth: " + json.dumps(m))
+    if args.render:
+        from boslam_torch.viz.draw import save_render
+
+        save_render(args.render, poses, landmarks, bound=meta.bound, iteration=cfg.iters,
+                    max_iterations=cfg.iters)
+        print(f"renders written to {args.render}", file=sys.stderr)
     if args.out:
         write_g2o(args.out, meta.pose_ids, poses, meta.lm_ids, np.asarray(landmarks),
                   parsed=parsed, fixed_pose_id=meta.fixed_pose_id)
@@ -180,6 +248,110 @@ def cmd_solve(args) -> int:
         save_npz(args.save, g2, meta, iteration=start_iter + cfg.iters, lm_lambda=lam_final,
                  dp=st.get("dp_final"))
         print(f"checkpoint written to {args.save}", file=sys.stderr)
+    return 0
+
+
+# The reference's startup banner (executables/bearing_only_slam.cpp:76-79).
+_BANNER = r"""
+ ______  _______ _______  ______ _____ __   _  ______      _____  __   _        __   __      _______        _______ _______
+ |_____] |______ |_____| |_____/   |   | \  | |  ____ ___ |     | | \  | |        \_/        |______ |      |_____| |  |  |
+ |_____] |______ |     | |    \_ __|__ |  \_| |_____|     |_____| |  \_| |_____    |         ______| |_____ |     | |  |  |
+"""
+
+
+def _interactive_loop(graph, meta, cfg) -> int:
+    """The reference's keyboard loop (bearing_only_slam.cpp:88-113) in a
+    matplotlib window: any key = 1 step, Tab/PgDn/Shift = 50 steps, b/o
+    toggle the bearing/odometry overlays, Esc quits.  Refuses, non-zero,
+    where only a non-interactive backend is available."""
+    import os
+
+    import matplotlib
+
+    # Agg and the other file backends render to nothing; GUI backends
+    # (TkAgg, QtAgg, ...) also end in "agg" and are left alone
+    backend = matplotlib.get_backend().lower()
+    headless = {"agg", "pdf", "svg", "ps", "pgf", "cairo", "template"}
+    if backend in headless or (backend.startswith("module://")
+                               and not any(k in backend for k in ("ipympl", "webagg", "widget"))):
+        if not os.environ.get("DISPLAY") and not os.environ.get("MPLBACKEND"):
+            print(
+                "error: --interactive needs a GUI matplotlib backend, but "
+                f"only {matplotlib.get_backend()!r} is available (no DISPLAY). "
+                "Run on a machine with a display, set MPLBACKEND to an "
+                "interactive backend, or drop --interactive for the "
+                "headless solve (--render writes PNGs).",
+                file=sys.stderr,
+            )
+            return 2
+        try:  # a display exists: try the stock interactive backend
+            matplotlib.use("TkAgg")
+        except Exception as exc:
+            print(f"error: no usable interactive matplotlib backend ({exc}); "
+                  "set MPLBACKEND or drop --interactive.", file=sys.stderr)
+            return 2
+    import matplotlib.pyplot as plt
+    import torch
+
+    from boslam_torch.solver.optimizer import gn_step, lm_step
+    from boslam_torch.viz.draw import render_state
+
+    print(_BANNER)
+    print("Any key other than the specified ones: advance one iteration")
+    print("Tab/PgDn/Shift: advance many iterations")
+    print("B: toggle bearing observation display")
+    print("O: toggle odometry observation display")
+    print("Esc: close")
+
+    state = {"g": graph, "it": 0, "show_b": False, "show_o": False,
+             "lam": torch.full((), cfg.lm_lambda0, dtype=graph.poses.dtype, device=graph.device)}
+    fig, ax = plt.subplots(figsize=(8, 8))
+
+    def step_n(n):
+        for _ in range(n):
+            if cfg.optimizer == "lm":
+                g2, state["lam"], stats = lm_step(state["g"], state["lam"], cfg)
+            else:
+                g2, stats = gn_step(state["g"], cfg)
+            state["g"] = g2
+            state["it"] += 1
+        print(f"iter {state['it']}: chi2_robust={float(stats['chi2_robust']):.6f}")
+
+    def redraw():
+        ax.clear()
+        g = state["g"]
+        render_state(
+            g.poses.cpu().numpy(),
+            g.landmarks.cpu().numpy(),
+            bound=meta.bound,
+            bearings=(g.b_pose.cpu().numpy(), g.b_meas.cpu().numpy()) if state["show_b"] else None,
+            odometries=(g.o_src.cpu().numpy(), g.o_meas.cpu().numpy()) if state["show_o"] else None,
+            iteration=state["it"],
+            max_iterations=max(cfg.iters, state["it"] + 1),
+            ax=ax,
+        )
+        fig.canvas.draw_idle()
+
+    def on_key(event):
+        # Tab, PgDn and Shift run the 50-step batch (bearing_only_slam.cpp:95)
+        if event.key == "escape":
+            plt.close(fig)
+            return
+        if event.key in ("tab", "pagedown", "shift"):
+            print("Occhio che ci metto un po'")  # bearing_only_slam.cpp:96
+            step_n(50)
+            print("Fatto!")  # bearing_only_slam.cpp:99
+        elif event.key == "b":
+            state["show_b"] = not state["show_b"]
+        elif event.key == "o":
+            state["show_o"] = not state["show_o"]
+        else:
+            step_n(1)
+        redraw()
+
+    fig.canvas.mpl_connect("key_press_event", on_key)
+    redraw()
+    plt.show()
     return 0
 
 
@@ -257,6 +429,14 @@ def main(argv=None) -> int:
                     help="resume from an npz checkpoint: restores the state, "
                          "the iteration counter (runs the remaining --iters), "
                          "and the LM damping")
+    ps.add_argument("--render", default=None,
+                    help="write PNG renders of the final state and <name>_initial.png")
+    ps.add_argument("--profile", default=None,
+                    help="write a torch.profiler Chrome trace of the solve into this directory")
+    ps.add_argument("--interactive", action="store_true",
+                    help="step the solve from the keyboard in a matplotlib window")
+    ps.add_argument("--print-state", action="store_true",
+                    help="dump the packed [3NP|2NL] state vector (State::print_full_vector)")
     _add_solver_args(ps)
     ps.set_defaults(fn=cmd_solve)
 

@@ -1,12 +1,13 @@
 """Solver / run configuration (PyTorch port of ``boslam/config.py``).
 
 Same fields and defaults as the JAX package, so a configuration means the
-same thing in both.  Fields whose code paths the port does not carry yet
-(the bband preconditioner's knobs, bf16 coupling storage, the Cholesky
-backend choice, f64) are kept for that parity;
-``check_ported`` rejects any non-default value of them, so none is
-accepted and then ignored.  As in the JAX package, the packed-path fields
-(GNC, ``cg_warm_start``, ``gather``, ``lm_split``) are read by
+same thing in both.  ``dtype`` has no reader in the JAX package either; it
+is kept for that parity and ``check_ported`` rejects any non-default value
+of it, so none is accepted and then ignored.  ``check_ported`` also
+refuses a value of ``band_width``, ``band_group``, ``coupling_dtype`` or
+``cholesky_backend`` that the JAX package does not accept.  As in the JAX
+package, the packed-path fields (GNC, ``cg_warm_start``, ``gather``,
+``lm_split``, ``coupling_dtype``, the bband knobs) are read by
 ``solve_packed`` only.
 """
 
@@ -16,9 +17,13 @@ import dataclasses
 
 import numpy as np
 
-UNPORTED_FIELDS = frozenset((
-    "band_width", "band_group", "coupling_dtype", "cholesky_backend", "dtype",
-))
+UNPORTED_FIELDS = frozenset(("dtype",))
+
+# Relative noise floor that bfloat16-stored coupling blocks put under the
+# Schur matvec (~2^-8 per-element rounding): with coupling_dtype="bfloat16"
+# the CG tolerance is clamped up to this, reported per solve as
+# stats["cg_tol_effective"].
+BF16_CG_TOL_FLOOR = 4e-3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,15 +56,19 @@ class SolverConfig:
     preconditioner: str = "auto"  # "auto" | "block_jacobi" | "btridiag" | "two_level" | "bband"
     coarse_q: int = 0  # two_level: poses per coarse aggregate (0 = ~sqrt(NP) in [8, 128])
     two_level_cycle: str = "additive"  # two_level: "additive" | "vcycle"
+    # bband: S offsets 1..band_width kept exactly, and the super-node size
+    # (band_group overrides it when nonzero)
     band_width: int = 8
     band_group: int = 0
     btridiag_block: int = 0
     cg_warm_start: bool = False
     matvec_row_chunk: int = 0
 
-    # --- packed-path knobs (coupling_dtype not ported yet) ---
+    # --- packed-path knobs ---
     gather: str = "auto"
-    coupling_dtype: str = "float32"
+    # "bfloat16" stores the packed coupling blocks half-size; the
+    # contractions round the other operand to bf16 too and sum in f32
+    coupling_dtype: str = "float32"  # "float32" | "bfloat16"
     lm_split: "str | int" = "auto"
 
     # --- normal-equation assembly strategy ---
@@ -76,9 +85,11 @@ class SolverConfig:
     fused_step: str = "auto"  # "auto" | "off" | "force"
 
     # --- dense linear-solve backend ---
-    # Only "auto": the hand-written Cholesky kernel for CUDA tensors when the
-    # padded size fits MAX_VMEM_DIM, else torch.linalg.
-    cholesky_backend: str = "auto"
+    # "xla": torch.linalg (and no Schur kernel); "pallas": the hand-written
+    # Cholesky kernel whenever the padded size fits MAX_VMEM_DIM (its plain
+    # version for a CPU tensor); "auto": the kernel for a CUDA tensor that
+    # fits, else torch.linalg.  The names are the JAX package's.
+    cholesky_backend: str = "auto"  # "auto" | "xla" | "pallas"
 
     # --- iteration control ---
     iters: int = 50
@@ -86,7 +97,8 @@ class SolverConfig:
     # Scale only the b-side error by the robust weight, as the reference does.
     reference_kernel_quirk: bool = True
 
-    # Autodiff Jacobians are not ported yet (raises NotImplementedError).
+    # Jacobians by torch.func.jacfwd of the boxplus-perturbed errors
+    # instead of the closed forms (the reference's verification mode).
     use_autodiff_jacobians: bool = False
 
     dtype: str = "float32"
@@ -96,12 +108,21 @@ class SolverConfig:
 
     def check_ported(self) -> None:
         """Raise NotImplementedError if a field the port does not implement
-        has a value other than its default."""
+        has a value other than its default, and ValueError on a value of a
+        ported field that the JAX package does not accept."""
         changed = [f.name for f in dataclasses.fields(self)
                 if f.name in UNPORTED_FIELDS and getattr(self, f.name) != f.default]
         if changed:
             raise NotImplementedError(
                 f"not ported yet, leave at their defaults: {', '.join(changed)}")
+        if self.coupling_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown coupling_dtype {self.coupling_dtype!r}")
+        if self.cholesky_backend not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown cholesky_backend {self.cholesky_backend!r}")
+        for name in ("band_width", "band_group"):
+            v = getattr(self, name)
+            if isinstance(v, bool) or not isinstance(v, int) or v < 0:
+                raise ValueError(f"{name} must be an int >= 0, got {v!r}")
 
     @property
     def gnc_enabled(self) -> bool:

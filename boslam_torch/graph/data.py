@@ -124,3 +124,21 @@ def unpack_delta(delta: torch.Tensor, n_poses: int, n_landmarks: int):
     dp = delta[: 3 * n_poses].reshape(n_poses, 3)
     dl = delta[3 * n_poses :].reshape(n_landmarks, 2)
     return dp, dl
+
+
+def full_state_vector(poses, landmarks) -> np.ndarray:
+    """Packed ``[3*NP | 2*NL]`` state vector (t2v per pose, then landmarks)
+    on the host: the layout of ``State::print_full_vector``."""
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    return np.concatenate([host(poses).reshape(-1), host(landmarks).reshape(-1)])
+
+
+def print_full_state(poses, landmarks, file=None) -> None:
+    """The reference's ``State::print_full_vector`` debug line, "State: <v>",
+    each entry in ``%g``."""
+    import sys
+
+    v = full_state_vector(poses, landmarks)
+    print("State: " + " ".join(f"{x:g}" for x in v), file=file or sys.stdout)

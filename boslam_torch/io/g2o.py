@@ -12,14 +12,17 @@ Record grammar of the reference's ``utils/g2o_utils``:
 
 Parity details kept: unknown tokens are warned about, the symmetric plot
 bound tracks max |x|,|y| over both vertex types with a +3 margin, and
-empty inputs warn.  This module is the pure-Python parser only; the JAX
-package's native tokenizer has no counterpart here.
+empty inputs warn.  ``parse_g2o`` takes the native tokenizer
+(``io/native.py``) when it builds, as the JAX package takes its own, and
+this pure-Python parser otherwise; ``BOSLAM_NATIVE_IO=0`` turns the native
+one off.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -130,10 +133,33 @@ def parse_g2o_text(text: str) -> ParsedG2O:
     )
 
 
-def parse_g2o(path: str) -> ParsedG2O:
-    """Parse a g2o file."""
+def parse_g2o(path: str, use_native: Optional[bool] = None) -> ParsedG2O:
+    """Parse a g2o file (``boslam/io/g2o.py``'s switch).
+
+    ``use_native=None`` takes the native tokenizer unless
+    ``BOSLAM_NATIVE_IO`` is set to anything but "1", falling back to the
+    Python parser when it cannot be built; ``True`` takes it and raises if
+    it cannot be built; ``False`` the Python parser.  Which one ran is
+    logged at INFO.
+    """
+    auto = use_native is None
+    if auto:
+        use_native = os.environ.get("BOSLAM_NATIVE_IO", "1") == "1"
+    if use_native:
+        from boslam_torch.io.native import parse_g2o_native
+
+        try:
+            parsed = parse_g2o_native(path)
+            log.info("parsed %s with the native parser", path)
+            return parsed
+        except (RuntimeError, OSError) as exc:
+            if not auto:
+                raise
+            log.info("native g2o parser unavailable (%s); using python", exc)
     with open(path) as f:
-        return parse_g2o_text(f.read())
+        parsed = parse_g2o_text(f.read())
+    log.info("parsed %s with the python parser", path)
+    return parsed
 
 
 def write_g2o(

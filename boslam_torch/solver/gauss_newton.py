@@ -23,25 +23,33 @@ def gauge_mask(N: int, n_poses: int, fixed_pose_ix: torch.Tensor, dtype) -> torc
     return (~is_fixed).to(dtype)
 
 
-def _use_cholesky_kernel(H: torch.Tensor) -> bool:
-    """The Cholesky kernel for a CUDA tensor within the size gate."""
+def _use_cholesky_kernel(H: torch.Tensor, cfg: SolverConfig | None) -> bool:
+    """The ``cholesky_backend`` rule.  "xla": never; "pallas": whenever the
+    padded size fits MAX_VMEM_DIM (the kernel on a CUDA tensor, its plain
+    version on a CPU one, as the JAX package takes interpret mode off the
+    TPU); "auto" (and no cfg): a CUDA tensor that fits."""
     from boslam_torch.ops.cholesky import MAX_VMEM_DIM, pad_dim
 
-    return H.is_cuda and pad_dim(H.shape[0]) <= MAX_VMEM_DIM
+    backend = "auto" if cfg is None else cfg.cholesky_backend
+    if backend == "xla":
+        return False
+    fits = pad_dim(H.shape[0]) <= MAX_VMEM_DIM
+    return fits if backend == "pallas" else fits and H.is_cuda
 
 
-def solve_gauge_fixed(H, b, mask):
+def solve_gauge_fixed(H, b, mask, cfg: SolverConfig | None = None):
     """Solve H delta = -b with the fixed pose pinned to zero delta.
 
     Returns (delta, spd_ok).  A failed factorization shows as NaN in
     delta; ``spd_ok`` is False then and delta is zeroed (the state is
-    frozen rather than poisoned).  A CUDA tensor within the size gate goes
-    through the Cholesky kernel; otherwise ``torch.linalg`` solves, as the
-    JAX package takes XLA's Cholesky on the CPU and above the gate.
+    frozen rather than poisoned).  ``cfg.cholesky_backend`` picks the
+    Cholesky kernel's module (``ops/cholesky.cholesky_solve``) or
+    ``torch.linalg`` (``_use_cholesky_kernel``), as the JAX package picks
+    its Pallas kernel or XLA's Cholesky.
     """
     Hm = mask[:, None] * H * mask[None, :] + torch.diag(1.0 - mask)
     bm = mask * b
-    if _use_cholesky_kernel(H):
+    if _use_cholesky_kernel(H, cfg):
         from boslam_torch.ops.cholesky import cholesky_solve
 
         delta = cholesky_solve(Hm, -bm)
@@ -64,6 +72,6 @@ def gn_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping):
     N = g.state_dim
     H = H + damping * torch.eye(N, dtype=H.dtype, device=H.device)
     mask = gauge_mask(N, g.n_poses, g.fixed_pose_ix, H.dtype)
-    delta, spd_ok = solve_gauge_fixed(H, b, mask)
+    delta, spd_ok = solve_gauge_fixed(H, b, mask, cfg)
     dp, dl = unpack_delta(delta, g.n_poses, g.n_landmarks)
     return dp, dl, terms, spd_ok, {}

@@ -58,10 +58,11 @@ def _one_hots(g: FactorGraph):
 
 
 def edge_terms(g: FactorGraph, cfg: SolverConfig) -> EdgeTerms:
-    """Residuals, Jacobian blocks, robust weights and chi2 for all edges."""
-    if cfg.use_autodiff_jacobians:
-        raise NotImplementedError("autodiff Jacobians are not ported yet")
-    if use_matmul_assembly(g, cfg):
+    """Residuals, Jacobian blocks, robust weights and chi2 for all edges.
+
+    Autodiff Jacobians take the index gathers, not the one-hot products,
+    as in the JAX package (the assembly that follows is unchanged)."""
+    if use_matmul_assembly(g, cfg) and not cfg.use_autodiff_jacobians:
         # one-hot gathers are exact: each output is 1.0 * value + zeros
         Pb, Pl, Os, Od = _one_hots(g)
         p_b, l_b = Pb @ g.poses, Pl @ g.landmarks
@@ -71,8 +72,12 @@ def edge_terms(g: FactorGraph, cfg: SolverConfig) -> EdgeTerms:
         p_s, p_d = g.poses[g.o_src], g.poses[g.o_dst]
     be = R.bearing_error_from(p_b, l_b, g.b_meas)
     oe = R.odometry_error_from(p_s, p_d, g.o_meas)
-    bjp, bjl = R.bearing_jacobians_from(p_b, l_b)
-    ojs, ojd = R.odometry_jacobians_from(p_s, p_d)
+    if cfg.use_autodiff_jacobians:
+        bjp, bjl = R.bearing_jacobians_autodiff(g.poses, g.landmarks, g.b_pose, g.b_lm, g.b_meas)
+        ojs, ojd = R.odometry_jacobians_autodiff(g.poses, g.o_src, g.o_dst, g.o_meas)
+    else:
+        bjp, bjl = R.bearing_jacobians_from(p_b, l_b)
+        ojs, ojd = R.odometry_jacobians_from(p_s, p_d)
 
     bchi2 = g.b_omega * be * be
     ochi2 = torch.einsum("ei,eij,ej->e", oe, g.o_omega, oe)

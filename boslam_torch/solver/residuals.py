@@ -7,13 +7,17 @@ Bearing edge:  h(X) = atan2(g), g = R^T (l - t), error = wrap(h - z);
 Odometry edge: h(X) = [R_s^T (t_d - t_s) ; theta_d - theta_s], error =
   h - z with the angle wrapped; J_src = [[-R_s^T, -(R_s^T DR' t_d)], [0, -1]],
   J_dst = [[R_s^T, R_s^T DR' t_d], [0, 1]], DR' = [[0,-1],[1,0]].
+
+The autodiff variants differentiate the boxplus-perturbed errors at
+delta = 0 with ``torch.func.jacfwd`` under ``torch.func.vmap`` (the
+reference's numerical-Jacobian verification mode, exact here).
 """
 
 from __future__ import annotations
 
 import torch
 
-from boslam_torch.geometry.se2 import inverse_transform_point, wrap_angle
+from boslam_torch.geometry.se2 import boxplus_pose, inverse_transform_point, wrap_angle
 
 
 def predict_bearing(pose: torch.Tensor, lm: torch.Tensor) -> torch.Tensor:
@@ -94,3 +98,42 @@ def odometry_jacobians_from(src, dst):
         dim=-2,
     )
     return j_src, j_dst
+
+
+# The perturbed errors run on one-row batches: under forward-mode AD a
+# 0-dim tensor combined with a Python float (wrap_angle's constants) gives
+# a float64 tangent in PyTorch 2.x, a one-element row keeps it float32.
+def _bearing_err_of_delta(dp, dl, pose, lm, meas):
+    p = boxplus_pose(pose[None], dp[None])
+    return wrap_angle(predict_bearing(p, (lm + dl)[None]) - meas)[0]
+
+
+def _odom_err_of_delta(ds, dd, src, dst, meas):
+    e = predict_odometry(boxplus_pose(src[None], ds[None]), boxplus_pose(dst[None], dd[None]))
+    e = e - meas[None]
+    # the angle entry is wrapped out of place: vmap/jacfwd refuse in-place writes
+    return torch.cat([e[:, :2], wrap_angle(e[:, 2:3])], dim=-1)[0]
+
+
+def bearing_jacobians_autodiff(poses, landmarks, b_pose, b_lm, b_meas):
+    """(J_pose f32[NB,3], J_lm f32[NB,2]) by jacfwd of the perturbed error."""
+    from torch.func import jacfwd, vmap
+
+    zero3, zero2 = poses.new_zeros(3), poses.new_zeros(2)
+
+    def one(pose, lm, meas):
+        return jacfwd(_bearing_err_of_delta, argnums=(0, 1))(zero3, zero2, pose, lm, meas)
+
+    return vmap(one)(poses[b_pose], landmarks[b_lm], b_meas)
+
+
+def odometry_jacobians_autodiff(poses, o_src, o_dst, o_meas):
+    """(J_src f32[NO,3,3], J_dst f32[NO,3,3]) by jacfwd of the perturbed error."""
+    from torch.func import jacfwd, vmap
+
+    zero3 = poses.new_zeros(3)
+
+    def one(src, dst, meas):
+        return jacfwd(_odom_err_of_delta, argnums=(0, 1))(zero3, zero3, src, dst, meas)
+
+    return vmap(one)(poses[o_src], poses[o_dst], o_meas)

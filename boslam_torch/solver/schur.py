@@ -426,10 +426,13 @@ def _nan_guard(dp, dl):
             torch.where(ok, dl, torch.zeros_like(dl)), ok)
 
 
-def _takes_kernel(g: FactorGraph) -> bool:
+def _takes_kernel(g: FactorGraph, cfg: SolverConfig) -> bool:
+    """The exact Schur kernel: a CUDA graph within ``fused_fits``, unless
+    ``cholesky_backend="xla"`` (the JAX package's rule)."""
     from boslam_torch.ops.schur_solve import fused_fits
 
-    return g.poses.is_cuda and fused_fits(3 * g.n_poses, 2 * g.n_landmarks)
+    return (cfg.cholesky_backend != "xla" and g.poses.is_cuda
+            and fused_fits(3 * g.n_poses, 2 * g.n_landmarks))
 
 
 def kernel_band(g: FactorGraph, cfg: SolverConfig) -> int | None:
@@ -437,7 +440,7 @@ def kernel_band(g: FactorGraph, cfg: SolverConfig) -> int | None:
     band (``gn_step.tile_band``) where the exact Schur kernel runs and the
     band fits, else None.  Computed once per solve (one host wait for the
     edges' structure), never per iteration."""
-    if cfg.linear_solver != "schur" or not _takes_kernel(g):
+    if cfg.linear_solver != "schur" or not _takes_kernel(g, cfg):
         return None
     from boslam_torch.ops.gn_step import tile_band
 
@@ -451,8 +454,9 @@ def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bo
     Returns (delta_poses f32[NP,3], delta_landmarks f32[NL,2], terms, ok,
     extra); ``extra`` holds the CG stats on the CG path, else nothing.
     Exact (``use_cg=False``): on a CUDA tensor within ``fused_fits`` the
-    Schur kernel runs; otherwise S is materialized and solved as on the JAX
-    package's non-TPU backends.  ``use_cg=True`` ("schur_cg"): matrix-free
+    Schur kernel runs (unless ``cholesky_backend="xla"``); otherwise S is
+    materialized and solved by ``solve_gauge_fixed`` under the same
+    backend, as on the JAX package's non-TPU backends.  ``use_cg=True`` ("schur_cg"): matrix-free
     PCG to ``cfg.cg_tol``, a truncated inner solve of inexact Newton.
     ``band_tiles`` (from ``kernel_band``) picks the kernel's route.
     """
@@ -460,7 +464,7 @@ def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bo
         use_cg = cfg.linear_solver == "schur_cg"
     mask = _pose_mask(g.n_poses, g.fixed_pose_ix, g.poses.dtype)
     extra = {}
-    if not use_cg and _takes_kernel(g):
+    if not use_cg and _takes_kernel(g, cfg):
         terms = edge_terms(g, cfg)
         dp, dl = fused_schur_solve(g, cfg, damping, terms, mask, band_tiles)
         dp, dl, ok = _nan_guard(dp, dl)
@@ -472,7 +476,7 @@ def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bo
 
         S, rhs_flat = dense_reduced_system(blocks, g)
         m = mask[:, 0].repeat_interleave(3)
-        delta, _spd = solve_gauge_fixed(S, -rhs_flat, m)
+        delta, _spd = solve_gauge_fixed(S, -rhs_flat, m, cfg)
         dp = delta.reshape(g.n_poses, 3)
     else:
         # reduced rhs: -bp + Hpl Hll^-1 bl, gauge-masked

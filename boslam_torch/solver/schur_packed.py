@@ -9,8 +9,12 @@ segment sum.  A grid with a windowed-gather plan gathers through the
 windowed kernel (``ops/windowed_gather.py``), one launch per gather: two in
 the build, one for the reduced rhs, one in ``packed_s_diag``, two per
 matvec and one in the back-substitution, so 5 + 2 k per outer iteration
-with k matvecs (LM's cost check adds one).  Coupling blocks are f32 only
-(``coupling_dtype="bfloat16"`` is not ported).
+with k matvecs (LM's cost check adds one; "bband" adds one for its
+assembly).  With ``coupling_dtype="bfloat16"`` the coupling blocks are
+stored bf16 and every contraction with them (``_couple``) rounds the other
+operand to bf16 too and sums in f32, as the JAX package's MXU-native
+bf16 x bf16 -> f32 einsum; the CG tolerance is then clamped to
+``BF16_CG_TOL_FLOOR``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from boslam_torch.config import SolverConfig
+from boslam_torch.config import BF16_CG_TOL_FLOOR, SolverConfig
 from boslam_torch.geometry.se2 import boxplus_state
 from boslam_torch.graph.data import FactorGraph
 from boslam_torch.graph.packed import PackedEdges
@@ -41,6 +45,19 @@ def _take(values: torch.Tensor, idx: torch.Tensor, plan: "WindowPlan | None"):
     return windowed_take(flat, idx, plan).reshape(idx.shape + values.shape[1:])
 
 
+def _couple(spec: str, B: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Coupling-block einsum with f32 sums whatever the storage.
+
+    bf16 blocks: ``x`` is rounded to bf16 (nearest even) and both operands
+    are widened to f32, whose products of two bf16 values are exact, so
+    only the order of the sums can differ from a bf16 x bf16 -> f32
+    contraction.  The widened copy of the blocks is made on every call (a
+    fused contraction is later work)."""
+    if B.dtype == torch.bfloat16:
+        return torch.einsum(spec, B.float(), x.to(torch.bfloat16).float())
+    return torch.einsum(spec, B, x)
+
+
 def _lm_rows_sum(x, pk: PackedEdges, NL: int):
     """Finish a landmark-keyed reduction over the grid's virtual rows:
     identity with one row per landmark, else a segment sum by ``l_virt``."""
@@ -52,8 +69,8 @@ def _lm_rows_sum(x, pk: PackedEdges, NL: int):
 class PackedBlocks(NamedTuple):
     Hpp_diag: torch.Tensor  # [NP, 3, 3]
     Hll_inv: torch.Tensor  # [NL, 2, 2]
-    Bp: torch.Tensor  # [NP, K, 3, 2] pose-packed coupling blocks
-    Bl: torch.Tensor  # [NLV, K2, 3, 2] landmark-packed coupling blocks
+    Bp: torch.Tensor  # [NP, K, 3, 2] pose-packed coupling blocks (f32 or bf16)
+    Bl: torch.Tensor  # [NLV, K2, 3, 2] landmark-packed coupling blocks (f32 or bf16)
     bp: torch.Tensor  # [NP, 3]
     bl: torch.Tensor  # [NL, 2]
     Ho_sd: torch.Tensor  # [NO, 3, 3] odometry couplings
@@ -159,6 +176,9 @@ def build_packed_blocks(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, damp
 
     Hpp_diag = Hpp_diag + damping * torch.eye(3, dtype=dtype, device=dev)
     Hll_inv = _inv2x2(Hll + damping * torch.eye(2, dtype=dtype, device=dev))
+    if cfg.coupling_dtype == "bfloat16":
+        Bp = Bp.to(torch.bfloat16)
+        Bl = Bl.to(torch.bfloat16)
     return PackedBlocks(Hpp_diag, Hll_inv, Bp, Bl, bp, bl, H_sd, g.o_src, g.o_dst), stats
 
 
@@ -198,19 +218,19 @@ def packed_s_matvec(blocks: PackedBlocks, pk: PackedEdges, x, mask, row_chunk: i
 
     # z = Hlp x (landmark-packed: gather x by slot pose, sum the slots)
     if use_chunks:
-        z = _chunked_rows(lambda b, ix: torch.einsum("lkij,lki->lj", b, xm[ix]),
+        z = _chunked_rows(lambda b, ix: _couple("lkij,lki->lj", b, xm[ix]),
                           (blocks.Bl, pk.l_pose), pk.l_pose.shape[0], row_chunk)
     else:
-        z = torch.einsum("lkij,lki->lj", blocks.Bl, _take(xm, pk.l_pose, pk.l_plan))
+        z = _couple("lkij,lki->lj", blocks.Bl, _take(xm, pk.l_pose, pk.l_plan))
     z = _lm_rows_sum(z, pk, blocks.Hll_inv.shape[0])
     w = torch.einsum("lij,lj->li", blocks.Hll_inv, z)
 
     # y_corr = Hpl w (pose-packed: gather w by slot landmark, sum the slots)
     if use_chunks:
-        y_corr = _chunked_rows(lambda b, ix: torch.einsum("pkij,pkj->pi", b, w[ix]),
+        y_corr = _chunked_rows(lambda b, ix: _couple("pkij,pkj->pi", b, w[ix]),
                                (blocks.Bp, pk.p_lm), pk.p_lm.shape[0], row_chunk)
     else:
-        y_corr = torch.einsum("pkij,pkj->pi", blocks.Bp, _take(w, pk.p_lm, pk.p_plan))
+        y_corr = _couple("pkij,pkj->pi", blocks.Bp, _take(w, pk.p_lm, pk.p_plan))
     y_partial = _odometry_coupling(blocks, pk, xm, NP_) - y_corr
     y = torch.einsum("pij,pj->pi", blocks.Hpp_diag, xm) + y_partial
     return y * mask + x * (1.0 - mask)
@@ -219,20 +239,24 @@ def packed_s_matvec(blocks: PackedBlocks, pk: PackedEdges, x, mask, row_chunk: i
 def packed_s_diag(blocks: PackedBlocks, pk: PackedEdges) -> torch.Tensor:
     """Exact diag(S): Hpp_ii - sum_k B Hll_inv[lm] B^T over the pose slots.
 
-    With a windowed plan the Hll_inv blocks are gathered through the kernel;
-    without one, the three unique Hll_inv components are gathered through
-    the transposed [K, NP] indices and combined component by component, as
-    the JAX package does.
+    With a windowed plan the Hll_inv blocks are gathered through the kernel
+    (and rounded to bf16 under bf16 blocks, as the JAX package's einsum
+    does); without one, the three unique Hll_inv components are gathered
+    through the transposed [K, NP] indices and combined component by
+    component, as the JAX package does.  bf16 blocks are widened to f32.
     """
+    Bp = blocks.Bp.float()
     if pk.p_plan is not None:
         Hinv_g = _take(blocks.Hll_inv, pk.p_lm, pk.p_plan)
-        corr = torch.einsum("pkij,pkjl,pkml->pim", blocks.Bp, Hinv_g, blocks.Bp)
+        if blocks.Bp.dtype == torch.bfloat16:
+            Hinv_g = Hinv_g.to(torch.bfloat16).float()
+        corr = torch.einsum("pkij,pkjl,pkml->pim", Bp, Hinv_g, Bp)
     else:
         idxT = pk.p_lm.T  # [K, NP]
         a = blocks.Hll_inv[:, 0, 0][idxT]
         b = blocks.Hll_inv[:, 0, 1][idxT]
         d = blocks.Hll_inv[:, 1, 1][idxT]
-        BT = blocks.Bp.permute(1, 2, 3, 0)  # [K, 3, 2, NP]
+        BT = Bp.permute(1, 2, 3, 0)  # [K, 3, 2, NP]
         # u_j = Hll_inv @ B's j-th row per slot; corr_im = sum_k B_i . u_m
         rows = []
         for i in range(3):
@@ -263,11 +287,13 @@ def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverCon
     "block_jacobi": exact 3x3 diag(S).  "btridiag" (graphs with an odometry
     chain): T = tridiag(diag(S), chain band) factored by cyclic reduction.
     "two_level": the two-level chain scheme over the same T
-    (``solver/two_level.py``).  "auto": btridiag up to 32768 poses,
-    block-Jacobi above (the JAX package's rule, measured on its TPU).  The
-    fixed pose's block is pinned to the identity and its band entries
-    zeroed, as the masked matvec.  Without a chain every choice is
-    block-Jacobi.  "bband" is not ported yet.
+    (``solver/two_level.py``).  "bband": the block-banded T = band_w(S)
+    over super-nodes of q = band_group or band_width poses
+    (``solver/bband.py``), on any graph.  "auto": btridiag up to 32768
+    poses, block-Jacobi above (the JAX package's rule, measured on its
+    TPU).  The fixed pose's block is pinned to the identity and its band
+    entries zeroed, as the masked matvec.  Without a chain every other
+    choice is block-Jacobi.
     """
     NP_ = blocks.Hpp_diag.shape[0]
     has_chain = pk.chain_len > 0 and NP_ > 1
@@ -275,7 +301,16 @@ def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverCon
     if which == "auto":
         which = "btridiag" if has_chain and NP_ <= 32768 else "block_jacobi"
     if which == "bband":
-        raise NotImplementedError("the bband preconditioner is not ported yet")
+        from boslam_torch.solver.bband import assemble_sband, bband_factor, bband_solve
+
+        # assembled as wide as the super-node, so that every diagonal
+        # super-block is an exact principal submatrix of S; uncompensated,
+        # T may be indefinite: the 0.98 clamp and the per-group fallback
+        # guard it (the JAX package's choices)
+        q = int(cfg.band_group) or max(1, int(cfg.band_width))
+        diag, band = assemble_sband(blocks, pk, q, mask)
+        factor = bband_factor(diag, band, q, clamp_band=0.98)
+        return lambda r: bband_solve(factor, r)
     if which not in ("block_jacobi", "btridiag", "two_level"):
         raise ValueError(f"unknown preconditioner {cfg.preconditioner!r}")
     eye3 = torch.eye(3, dtype=blocks.Hpp_diag.dtype, device=blocks.Hpp_diag.device)
@@ -311,25 +346,30 @@ def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverCon
     mask = _pose_mask(g.n_poses, g.fixed_pose_ix, g.poses.dtype)
 
     w0 = torch.einsum("lij,lj->li", blocks.Hll_inv, blocks.bl)
-    corr = torch.einsum("pkij,pkj->pi", blocks.Bp, _take(w0, pk.p_lm, pk.p_plan))
+    corr = _couple("pkij,pkj->pi", blocks.Bp, _take(w0, pk.p_lm, pk.p_plan))
     rhs = (-blocks.bp + corr) * mask
 
     precond = _packed_preconditioner(blocks, pk, cfg, mask)
     if x0 is not None:
         x0 = x0 * mask
+    # bf16 blocks put a ~2^-8 noise floor under the matvec: asking CG for
+    # less only runs it to the cap, so the tolerance is clamped to it
+    cg_tol = cfg.cg_tol
+    if cfg.coupling_dtype == "bfloat16":
+        cg_tol = max(cg_tol, BF16_CG_TOL_FLOOR)
     dp, n_iters, rel_res2, breakdown, info = pcg(
         lambda x: packed_s_matvec(blocks, pk, x, mask, row_chunk=cfg.matvec_row_chunk),
-        rhs, precond, cfg.cg_iters, cfg.cg_tol, x0, restarts=cfg.cg_restarts,
+        rhs, precond, cfg.cg_iters, cg_tol, x0, restarts=cfg.cg_restarts,
     )
     dp = dp * mask
 
-    hlp_dp = torch.einsum("lkij,lki->lj", blocks.Bl, _take(dp, pk.l_pose, pk.l_plan))
+    hlp_dp = _couple("lkij,lki->lj", blocks.Bl, _take(dp, pk.l_pose, pk.l_plan))
     hlp_dp = _lm_rows_sum(hlp_dp, pk, blocks.Hll_inv.shape[0])
     dl = torch.einsum("lij,lj->li", blocks.Hll_inv, -blocks.bl - hlp_dp)
 
     dp, dl, ok = _nan_guard(dp, dl)
     stats.update(cg_stats(n_iters, rel_res2, breakdown, info, g.device))
-    stats["cg_tol_effective"] = torch.full((), cfg.cg_tol, dtype=torch.float32, device=g.device)
+    stats["cg_tol_effective"] = torch.full((), cg_tol, dtype=torch.float32, device=g.device)
     return dp, dl, stats, ok
 
 

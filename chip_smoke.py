@@ -31,11 +31,25 @@ The two-level preconditioner runs on the 10k corridor (both cycles, held
 to the CPU run) and on the 100k corridor beside block-Jacobi (CG
 breakdowns, iterations, ms and memory per outer iteration).
 
+The block-banded preconditioner (bband, width 8) runs on the 10k corridor
+(held to the CPU run) and on the 100k corridor beside block-Jacobi, and
+both corridors run again with bf16 coupling blocks beside their f32 runs
+(chi2, ms per outer iteration, peak memory, the clamped CG tolerance).
+
+At the reference size, autodiff Jacobians are held against the analytic
+ones, and GN-schur 50 and GN-dense 50 run with autodiff Jacobians and
+under cholesky_backend "xla" and "pallas", each against the analytic
+"auto" run and with its launches ("xla" launches neither the Schur nor the
+Cholesky kernel).
+
 Then the survey-scale path: pgo_initialize and coarse_correct on a 10k
 walk with 100 loop closures, each held against the CPU's run (the poses of
-the init to the bit), and packed GNC LM under two_level from there; a
-resumed gn-fused run (5, save_npz, load_npz, 5) against 10 straight, to
-the bit; and ``python -m boslam_torch bench`` as a subprocess.
+the init to the bit), and packed GNC LM under two_level from there; the
+native g2o parser (built with g++) against the Python parser on the 100k
+corridor's g2o; a resumed gn-fused run (5, save_npz, load_npz, 5) against
+10 straight, to the bit; and ``python -m boslam_torch bench`` and
+``python -m boslam_torch solve --profile`` as subprocesses (the trace must
+name the whole step's kernels).  Nothing imports matplotlib.
 
 Prints the card, the build, one line per check, then a JSON line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  Any failed
@@ -94,6 +108,13 @@ WALK_HELD = 2
 # iterations, and within 4.3e-4 over the first 9 V-cycle iterations, the
 # 10th parting by 5.1e-3 (tools/port_packed_scan.py --preconditioner two_level)
 TWO_LEVEL_HELD = {"additive": 10, "vcycle": 9}
+# Iterations of bband (width 8) on the 10k corridor held against the CPU
+# run: the CPU's own windowed and take runs stay within 7.7e-4 over the
+# first 9, the 10th parting by 6.3e-3 (tools/port_packed_scan.py
+# --preconditioner bband).  On the 100k corridor, and with bf16 coupling
+# blocks on either, the two CPU runs part by 1.1e-2 to 3.5e-2 from the
+# second iteration on, so only iteration 0 is held there.
+BBAND_HELD = 9
 DEV = "cuda"
 
 
@@ -703,11 +724,12 @@ def check_windowed(torch, wg, pk, n_poses, n_landmarks, rng):
     return rows
 
 
-def _packed_launches(st, optimizer):
+def _packed_launches(st, cfg):
     """Windowed-gather launches the packed path makes: 5 + 2 per matvec per
     GN outer iteration (2 in the build, the rhs, diag(S), the
-    back-substitution), one more per LM trial (its cost check)."""
-    per = 5 + (1 if optimizer == "lm" else 0)
+    back-substitution), one more per LM trial (its cost check) and one more
+    under "bband" (its assembly's take of Hll^-1)."""
+    per = 5 + (cfg.optimizer == "lm") + (cfg.preconditioner == "bband")
     return int(sum(per + 2 * int(m) for m in st["cg_matvecs"]))
 
 
@@ -730,7 +752,7 @@ def run_packed(torch, solve, g, cfg, counters, label, windowed):
     g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
     want = _want(counts)
     if windowed:
-        want["windowed_take"] = _packed_launches(st, cfg.optimizer)
+        want["windowed_take"] = _packed_launches(st, cfg)
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     return g2, st, counts, secs
@@ -742,6 +764,75 @@ def _cg_summary(st, cfg, secs):
                 sum_cg_iters=int(st["cg_iters"].sum()), sum_matvecs=int(st["cg_matvecs"].sum()),
                 polls_per_outer=float(st["cg_polls"].mean()),
                 breakdowns=int(st["cg_breakdown"].sum()))
+
+
+def per_outer_run(st, cfg, secs, peak):
+    """A packed run's trace per outer iteration, its ms per outer and peak."""
+    return dict(chi2=st["chi2_robust"].tolist(), breakdown=st["cg_breakdown"].tolist(),
+                breakdown_events=st["cg_breakdown_events"].tolist(),
+                cg_iters=st["cg_iters"].tolist(), cg_rel_res2=st["cg_rel_res2"].tolist(),
+                ms_per_outer=secs / cfg.iters * 1e3, max_memory_allocated=peak)
+
+
+def run_bband(torch, solve_packed, g, g_cpu, cfg, counters, size, held, beside):
+    """Packed-windowed GN under "bband" (band width 8, the JAX default):
+    launches by the formula, chi2 held to the CPU run (``g_cpu``; iteration
+    0 at 1e-5, iterations 1..held-1 at 2e-3) or, without one, iteration 0
+    to the ``beside`` run's (the same initial state); CG iterations,
+    breakdowns, ms per outer and the peak beside the slot-match mask's
+    size.  Returns its gather launches."""
+    label = f"bband packed-windowed {size}"
+    cfg_bb = cfg.replace(preconditioner="bband")
+    q = cfg_bb.band_group or cfg_bb.band_width
+    torch.cuda.reset_peak_memory_stats()
+    _, st, counts, secs = run_packed(torch, solve_packed, g, cfg_bb, counters, label, True)
+    peak = torch.cuda.max_memory_allocated()
+    c = st["chi2_robust"]
+    if g_cpu is not None:
+        ref = _stats(solve_packed(g_cpu, cfg_bb)[1])["chi2_robust"]
+        what = "CPU"
+    else:
+        ref = np.asarray(next(iter(beside.values()))["chi2"])
+        what = next(iter(beside))
+    rel = _hold_trace(c, ref, held, label, what)
+    if not c[-1] < c[0]:
+        raise AssertionError(f"{label}: chi2 {c.tolist()} did not descend")
+    K = int(torch.bincount(g.b_pose, minlength=g.n_poses).max())  # pose-grid slots
+    print(f"{label}: " + json.dumps(dict(
+        launches=counts["windowed_take"], launches_expected=_packed_launches(st, cfg_bb),
+        band_width=q, held_iterations=held, held_against=what, rel=rel.tolist(),
+        # the largest [NP-d, K, K] f32 slot-match mask of the assembly (d = 1)
+        slot_match_mask_bytes=4 * (g.n_poses - 1) * K * K, pose_grid_slots=K,
+        bband=per_outer_run(st, cfg_bb, secs, peak), **beside)))
+    return counts["windowed_take"]
+
+
+def run_bf16(torch, solve_packed, g, cfg, counters, size, f32, f32_name):
+    """The same packed-windowed run with bf16 coupling blocks, beside its f32
+    run of this call (``f32``, a ``per_outer_run``): chi2 after the run, ms
+    per outer, peak, and the clamped CG tolerance (4e-3, the floor).  The
+    first chi2 is the initial state's, held to the f32 run's at 1e-5.
+    Returns its gather launches."""
+    from boslam_torch.config import BF16_CG_TOL_FLOOR
+
+    label = f"bf16 coupling packed-windowed {size} ({f32_name})"
+    cfg16 = cfg.replace(coupling_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    _, st, counts, secs = run_packed(torch, solve_packed, g, cfg16, counters, label, True)
+    peak = torch.cuda.max_memory_allocated()
+    c = st["chi2_robust"]
+    _hold_trace(c, np.asarray(f32["chi2"]), 1, label, f"f32 {f32_name}")
+    tol = st["cg_tol_effective"]
+    if not (c[-1] < c[0] and (tol == np.float32(BF16_CG_TOL_FLOOR)).all()):
+        raise AssertionError(f"{label}: chi2 {c.tolist()}, cg_tol_effective {tol.tolist()}")
+    print(f"{label}: " + json.dumps(dict(
+        launches=counts["windowed_take"], launches_expected=_packed_launches(st, cfg16),
+        cg_tol_effective=float(tol[0]), chi2_last=float(c[-1]), chi2_last_f32=f32["chi2"][-1],
+        rel_chi2_last_vs_f32=abs(float(c[-1]) - f32["chi2"][-1]) / f32["chi2"][-1],
+        ms_per_outer=secs / cfg.iters * 1e3, ms_per_outer_f32=f32["ms_per_outer"],
+        peak_mb=peak / 2**20, peak_mb_f32=f32["max_memory_allocated"] / 2**20,
+        bf16=per_outer_run(st, cfg16, secs, peak))))
+    return counts["windowed_take"]
 
 
 def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph, SolverConfig):
@@ -785,21 +876,24 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
     _, st_t, _, secs_t = run_packed(torch, solve_packed, g, cfg.replace(gather="take"), counters,
                                     "packed-take 10k corridor", False)
     rel_take = _hold_trace(c, st_t["chi2_robust"], cfg.iters, "packed-windowed 10k", "take run")
+    torch.cuda.reset_peak_memory_stats()
     g3, st2, _, secs2 = run_packed(torch, solve_packed, g, cfg, counters,
                                    "packed-windowed 10k repeat", True)
+    peak2 = torch.cuda.max_memory_allocated()
     bitwise = bool(np.array_equal(st2["chi2_robust"], c) and torch.equal(g3.poses, g2.poses)
                    and torch.equal(g3.landmarks, g2.landmarks))
     ate = ate_metrics(g2.poses.cpu().numpy(), match_gt_poses(meta, gt))
     prof = profile_path(torch, solve_packed, g, cfg, iters=1)
     print("packed-windowed 10k: " + json.dumps(dict(
         graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry], seed=MID[2],
-        launches=counts["windowed_take"], launches_expected=_packed_launches(st, "gn"),
+        launches=counts["windowed_take"], launches_expected=_packed_launches(st, cfg),
         chi2_first=float(c[0]), chi2_last=float(c[-1]), chi2_last_cpu=float(st_cpu["chi2_robust"][-1]),
         rel_vs_cpu=rel_cpu.tolist(), rel_vs_take=rel_take.tolist(),
         matvecs_wasted_by_masking=int(st["cg_matvecs"].sum() - st["cg_iters"].sum()),
         ms_per_outer_first_run=secs / cfg.iters * 1e3, ms_per_outer_take=secs_t / cfg.iters * 1e3,
         bitwise_repeat=bitwise, ate_rmse_aligned=ate["ate_rmse_aligned"],
-        device_busy_share=prof["device_busy_share"], profile=prof, **_cg_summary(st2, cfg, secs2))))
+        device_busy_share=prof["device_busy_share"], profile=prof, max_memory_allocated=peak2,
+        **_cg_summary(st2, cfg, secs2))))
     print(f"phase packed-windowed 10k: {time.perf_counter() - t0:.1f} s wall")
 
     # ---- phase 2b: the same runs under the two-level preconditioner, both cycles ----
@@ -816,7 +910,7 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
         if not c_tl[-1] < c_tl[0]:
             raise AssertionError(f"{label}: chi2 {c_tl.tolist()} did not descend")
         print(f"{label}: " + json.dumps(dict(
-            launches=counts_tl["windowed_take"], launches_expected=_packed_launches(st_tl, "gn"),
+            launches=counts_tl["windowed_take"], launches_expected=_packed_launches(st_tl, cfg_tl),
             held_iterations=TWO_LEVEL_HELD[cycle], rel_vs_cpu=rel_tl.tolist(),
             chi2_first=float(c_tl[0]), chi2_last=float(c_tl[-1]),
             chi2_last_btridiag=float(st2["chi2_robust"][-1]),
@@ -824,6 +918,14 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
             breakdown_events=st_tl["cg_breakdown_events"].tolist(),
             **_cg_summary(st_tl, cfg_tl, secs_tl))))
     print(f"phase two_level 10k: {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- phase 2c: bband (width 8) and bf16 coupling storage on the 10k corridor ----
+    t0 = time.perf_counter()
+    launches += run_bband(torch, solve_packed, g, g_cpu, cfg, counters, "10k", BBAND_HELD,
+                          dict(btridiag=per_outer_run(st2, cfg, secs2, peak2)))
+    launches += run_bf16(torch, solve_packed, g, cfg, counters, "10k",
+                         per_outer_run(st2, cfg, secs2, peak2), "btridiag")
+    print(f"phase bband + bf16 10k: {time.perf_counter() - t0:.1f} s wall")
 
     # ---- phase 3: packed-windowed 100k corridor, GN, "auto" = block-Jacobi ----
     t0 = time.perf_counter()
@@ -845,7 +947,7 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
         raise AssertionError(f"packed-windowed 100k: chi2 {c.tolist()} did not descend")
     print("packed-windowed 100k: " + json.dumps(dict(
         graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry], seed=BIG[2],
-        launches=counts["windowed_take"], launches_expected=_packed_launches(st, "gn"),
+        launches=counts["windowed_take"], launches_expected=_packed_launches(st, cfg),
         chi2=c.tolist(), chi2_take=st_t["chi2_robust"].tolist(), rel_vs_take=rel_take.tolist(),
         breakdown=st["cg_breakdown"].tolist(), breakdown_take=st_t["cg_breakdown"].tolist(),
         ms_per_outer_take=secs_t / cfg.iters * 1e3, max_memory_allocated=peak,
@@ -867,19 +969,21 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
     if not c_tl[-1] < c_tl[0]:
         raise AssertionError(f"{label}: chi2 {c_tl.tolist()} did not descend")
 
-    def per_outer(st_, secs_, peak_):
-        return dict(chi2=st_["chi2_robust"].tolist(), breakdown=st_["cg_breakdown"].tolist(),
-                    breakdown_events=st_["cg_breakdown_events"].tolist(),
-                    cg_iters=st_["cg_iters"].tolist(), cg_rel_res2=st_["cg_rel_res2"].tolist(),
-                    ms_per_outer=secs_ / cfg.iters * 1e3, max_memory_allocated=peak_)
-
     print("100k corridor, two_level vs block-Jacobi: " + json.dumps(dict(
-        launches=counts_tl["windowed_take"], launches_expected=_packed_launches(st_tl, "gn"),
+        launches=counts_tl["windowed_take"], launches_expected=_packed_launches(st_tl, cfg_tl),
         rel_vs_take=rel_tl.tolist(), ms_per_outer_take=secs_tlt / cfg.iters * 1e3,
-        two_level=per_outer(st_tl, secs_tl, peak_tl),
-        block_jacobi=per_outer(st, secs, peak))))
-    del g, g2, g100_cpu, pk100
+        two_level=per_outer_run(st_tl, cfg, secs_tl, peak_tl),
+        block_jacobi=per_outer_run(st, cfg, secs, peak))))
     print(f"phase two_level 100k: {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- phase 3c: bband and bf16 coupling storage on the 100k corridor ----
+    t0 = time.perf_counter()
+    bj = per_outer_run(st, cfg, secs, peak)
+    launches += run_bband(torch, solve_packed, g, None, cfg, counters, "100k", 1,
+                          dict(block_jacobi=bj))
+    launches += run_bf16(torch, solve_packed, g, cfg, counters, "100k", bj, "block_jacobi")
+    del g, g2, g100_cpu, pk100
+    print(f"phase bband + bf16 100k: {time.perf_counter() - t0:.1f} s wall")
 
     # ---- phase 4: the default walk (plans refused): packed GN, LM, flat CG, GNC ----
     t0 = time.perf_counter()
@@ -999,6 +1103,97 @@ def run_survey_phase(torch, counters, build_graph, generate_sequence, SolverConf
     print(f"phase survey: {time.perf_counter() - t0:.1f} s wall")
 
 
+def run_autodiff_backend_phase(torch, solve, g, counters, runs):
+    """Autodiff Jacobians and the cholesky_backend switch at 301/141.
+
+    The Jacobians on the graph's state against the analytic ones (within
+    1e-5 of the largest entry); GN-schur 50 (fused off) and GN-dense 50
+    with autodiff, and under cholesky_backend "xla" and "pallas", each
+    against the analytic "auto" run of this call (``runs``: label ->
+    chi2 trace) at rel 1e-4 after 50, with its launches: autodiff and
+    "pallas" take the Schur kernel (schur) and the Cholesky kernel (dense)
+    50 times, "xla" neither.  Returns {label: launches}."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver.normal_eq import edge_terms
+
+    t0 = time.perf_counter()
+    cfg_s = SolverConfig(linear_solver="schur", fused_step="off", iters=ITERS)
+    t_an = edge_terms(g, cfg_s)
+    t_ad = edge_terms(g, cfg_s.replace(use_autodiff_jacobians=True))
+    jac_err = {}
+    for name in ("bjp", "bjl", "ojs", "ojd"):
+        a, b = getattr(t_ad, name), getattr(t_an, name)
+        jac_err[name] = ((a - b).abs().max() / b.abs().max()).item()
+    if not max(jac_err.values()) < 1e-5:
+        raise AssertionError(f"autodiff Jacobians: {jac_err}")
+    print("autodiff Jacobians vs analytic, max |diff| / max |analytic|: " + json.dumps(jac_err))
+    launches = {}
+    for ls in ("schur", "dense"):
+        base = cfg_s.replace(linear_solver=ls)
+        for label, cfg, want_kernel in (
+                ("autodiff", base.replace(use_autodiff_jacobians=True), True),
+                ("cholesky_backend xla", base.replace(cholesky_backend="xla"), False),
+                ("cholesky_backend pallas", base.replace(cholesky_backend="pallas"), True)):
+            label = f"gn-{ls} {label}"
+            _, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
+            if not want_kernel:
+                want = _want(counts)
+            elif ls == "schur":
+                want = _want(counts, schur=ITERS, schur_band=ITERS)
+            else:
+                want = _want(counts, cholesky=ITERS)
+            c, ref = st["chi2_robust"], runs[f"gn-{ls}"]
+            rel = abs(c[-1] - ref[-1]) / ref[-1]
+            if counts != want or not (st["spd_ok"].all() and c[-1] < c[0] and rel < 1e-4):
+                raise AssertionError(f"{label}: launches {counts} (want {want}), chi2 {c[0]} -> "
+                                     f"{c[-1]}, analytic auto {ref[-1]} (rel {rel:.2e})")
+            print(f"{label}: " + json.dumps(dict(
+                launches=counts, chi2_final=float(c[-1]), chi2_final_auto=float(ref[-1]),
+                rel_vs_auto=float(rel), ms_per_iter_first_run=secs / ITERS * 1e3)))
+            launches[label] = counts
+    print(f"phase autodiff + cholesky_backend: {time.perf_counter() - t0:.1f} s wall")
+    return launches
+
+
+def run_native_phase(generate_sequence, size=BIG):
+    """The native g2o tokenizer on the 100k corridor's g2o: built here with
+    g++, arrays equal to the Python parser's, and both parsers' host
+    seconds."""
+    import tempfile
+
+    from boslam_torch.io import native
+    from boslam_torch.io.g2o import parse_g2o, write_g2o
+
+    t0 = time.perf_counter()
+    n_poses, n_landmarks, seed, turn_every = size
+    ig, _ = generate_sequence(n_poses, n_landmarks, seed=seed, turn_every=turn_every)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/corridor.g2o"
+        write_g2o(path, ig.pose_ids, ig.pose_xyt, ig.lm_ids, ig.lm_xy, parsed=ig,
+                  fixed_pose_id=ig.fixed_pose_id)
+        t1 = time.perf_counter()
+        native.build()
+        build_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        a = parse_g2o(path, use_native=True)
+        native_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        b = parse_g2o(path, use_native=False)
+        python_s = time.perf_counter() - t1
+    same = (a.pose_ids == b.pose_ids and a.lm_ids == b.lm_ids
+            and a.fixed_pose_id == b.fixed_pose_id and abs(a.bound - b.bound) < 1e-4)
+    for name in ("pose_xyt", "lm_xy", "bearing_pose_id", "bearing_lm_id", "bearing_meas",
+                 "bearing_omega", "odom_src_id", "odom_dst_id", "odom_meas", "odom_omega"):
+        x, y = getattr(a, name), getattr(b, name)
+        same = same and x.dtype == y.dtype and np.array_equal(x, y)
+    if not same:
+        raise AssertionError("native g2o parser: arrays differ from the Python parser's")
+    print(f"native g2o parser {n_poses} poses: " + json.dumps(dict(
+        edges=int(len(a.bearing_meas) + len(a.odom_meas)), equal_to_python=True,
+        build_seconds=build_s, native_seconds=native_s, python_seconds=python_s)))
+    print(f"phase native parser: {time.perf_counter() - t0:.1f} s wall")
+
+
 def run_resume_phase(torch, solve, g, cfg, counters, meta):
     """Resume on the card: gn-fused 10 straight against 5, save_npz,
     load_npz into a fresh graph, 5 more: the same bits."""
@@ -1045,6 +1240,25 @@ def run_bench_phase(torch, generate_sequence, chi2_fused):
         out = subprocess.run([sys.executable, "-m", "boslam_torch", "bench", path, "--linear-solver",
                               "schur", "--iters", str(ITERS)], cwd=root, env=env,
                              capture_output=True, text=True, timeout=300)
+        prof_dir = f"{d}/profile"
+        t1 = time.perf_counter()
+        prof = subprocess.run([sys.executable, "-m", "boslam_torch", "solve", path,
+                               "--linear-solver", "schur", "--iters", "5", "--profile", prof_dir],
+                              cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        prof_s = time.perf_counter() - t1
+        if prof.returncode != 0:
+            raise AssertionError(f"solve --profile: exit {prof.returncode}: {prof.stderr[-2000:]}")
+        from boslam_torch.utils.profiling import TRACE_FILE
+
+        with open(f"{prof_dir}/{TRACE_FILE}") as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sorted({k for e in events if e.get("cat") == "kernel"
+                          for k in PORT_KERNELS if k in str(e.get("name", ""))})
+        if "gn_edge_kernel" not in kernels:
+            raise AssertionError(f"solve --profile: the trace names none of the whole step's "
+                                 f"kernels ({kernels})")
+        print(f"solve --profile ({prof_s:.1f} s wall): " + json.dumps(dict(
+            trace_events=len(events), port_kernels_in_trace=kernels)))
     if out.returncode != 0:
         raise AssertionError(f"bench: exit {out.returncode}: {out.stderr[-2000:]}")
     lines = out.stdout.strip().splitlines()
@@ -1221,6 +1435,8 @@ def main() -> int:
         chi2_last=float(cl[-1]),
         accepted=int(st_l["accepted"].sum()), ms_per_iter_first_run=secs_l / 10 * 1e3)))
 
+    other = run_autodiff_backend_phase(torch, solve, g, counters, {"gn-schur": c, "gn-dense": cd})
+
     # ---- the main path: GN, exact Schur, fused_step="auto" -> the whole-step kernel ----
     fused_launches = run_fused(torch, solve, g, g_cpu, cfg_f, counters, float(c[-1]), meta, gt,
                                "gn-fused")
@@ -1244,6 +1460,7 @@ def main() -> int:
     win_row, win_launches = run_scale_phases(torch, wg, counters, solve, generate_sequence,
                                              build_graph, SolverConfig)
     run_survey_phase(torch, counters, build_graph, generate_sequence, SolverConfig)
+    run_native_phase(generate_sequence)
     t0 = time.perf_counter()
     run_resume_phase(torch, solve, g, cfg_f, counters, meta)
     print(f"phase resume: {time.perf_counter() - t0:.1f} s wall")
@@ -1257,7 +1474,8 @@ def main() -> int:
              plain_ms=chol_main["plain_ms"], bound_ms=chol_main["bound_ms"],
              bound_by=chol_main["bound_by"], library_ms=chol_main["library_ms"],
              launches_per_call=chol_main["launches_per_call"], shape=chol_main["shape"],
-             path="gn-dense"),
+             path="gn-dense",
+             launches_other_paths={k: v["cholesky"] for k, v in other.items() if v["cholesky"]}),
         dict(name="fused_schur_solve_blocks", route="cuda",
              source="boslam_torch/ops/csrc/schur_solve.cu",
              replaces="boslam/ops/pallas_schur.py:133", launches=schur_launches,
@@ -1266,7 +1484,8 @@ def main() -> int:
              bound_by=schur_main["bound_by"], library_ms=None,
              launches_per_call=schur_main["launches_per_call"], shape=schur_main["shape"],
              solve_route=schur_main["route"], band_tiles=schur_main["band_tiles"],
-             dense_route_ms=schur_main["dense_route_ms"], path="gn-schur"),
+             dense_route_ms=schur_main["dense_route_ms"], path="gn-schur",
+             launches_other_paths={k: v["schur"] for k, v in other.items() if v["schur"]}),
         dict(name="fused_gn_step", route="cuda", source="boslam_torch/ops/csrc/gn_step.cu",
              replaces="boslam/ops/pallas_gn_step.py:792", launches=fused_launches,
              max_abs_err=gn_main["max_abs_err"], ms=gn_main["ms"], plain_ms=gn_main["plain_ms"],
@@ -1280,8 +1499,8 @@ def main() -> int:
              bound_ms=win_row["bound_ms"], bound_by=win_row["bound_by"],
              library_ms=win_row["library_ms"], launches_per_call=gather_per_call,
              shape=win_row["shape"],
-             path="packed-windowed 10k + 100k, btridiag, two_level and block-Jacobi (landmark "
-                  "grid of the 100k corridor)"),
+             path="packed-windowed 10k + 100k, btridiag, two_level, block-Jacobi, bband and "
+                  "bf16 coupling (landmark grid of the 100k corridor)"),
     ]
     if not all(k["launches"] > 0 and k["launches_per_call"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched: {kernels}")

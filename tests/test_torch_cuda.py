@@ -340,12 +340,17 @@ def test_windowed_take_kernel_large_grid(cuda, C):
     assert torch.equal(out, values[idx_t])
 
 
-@pytest.mark.parametrize("optimizer", ["gn", "lm"])
-def test_packed_windowed_step_matches_cpu(cuda, optimizer):
+@pytest.mark.parametrize("optimizer, extra", [
+    ("gn", {}), ("lm", {}), ("gn", {"preconditioner": "bband"}),
+    ("gn", {"coupling_dtype": "bfloat16"}),
+])
+def test_packed_windowed_step_matches_cpu(cuda, optimizer, extra):
     """Two packed-windowed iterations on a corridor graph, on the card and on
     the CPU: chi2 at iteration 0 within rtol 1e-5, the next within 2e-3;
     the kernel launched 5 + 2 k times per GN iteration with k matvecs
-    (LM: one more)."""
+    (LM: one more; bband: one more, its assembly's take of Hll^-1), also
+    under the bband preconditioner and with bf16 coupling blocks, all
+    under sync-debug "error" (no host wait but the CG polls)."""
     from boslam_torch.config import SolverConfig
     from boslam_torch.graph.build import build_graph
     from boslam_torch.ops import windowed_gather as wg
@@ -354,10 +359,16 @@ def test_packed_windowed_step_matches_cpu(cuda, optimizer):
 
     ig, _ = generate_sequence(600, 240, seed=3, turn_every=10**9)
     g_cpu = build_graph(ig, init="triangulate", device="cpu")[0]
-    cfg = SolverConfig(linear_solver="schur_cg", gather="windowed", optimizer=optimizer, iters=2)
+    cfg = SolverConfig(linear_solver="schur_cg", gather="windowed", optimizer=optimizer, iters=2,
+                       **extra)
+    g = g_cpu.to(cuda)
     before = wg.windowed_take.launches
-    _, st = solve_packed(g_cpu.to(cuda), cfg)
-    per = 5 + (optimizer == "lm")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, st = solve_packed(g, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    per = 5 + (optimizer == "lm") + (cfg.preconditioner == "bband")
     assert wg.windowed_take.launches - before == sum(per + 2 * int(m) for m in st["cg_matvecs"])
     _, st_cpu = solve_packed(g_cpu, cfg)
     c, c_cpu = st["chi2_robust"].cpu().numpy(), st_cpu["chi2_robust"].numpy()
@@ -504,3 +515,22 @@ def test_band_route_past_its_shared_memory_raises(cuda):
     with pytest.raises(RuntimeError, match="fused_schur_solve_blocks"):
         ss.fused_schur_solve_blocks(*args, 0.0, past)
     torch.cuda.synchronize()
+
+
+def test_autodiff_jacobians_on_the_card(cuda):
+    """The autodiff Jacobians (vmap + jacfwd) on a CUDA graph, under
+    sync-debug "error": within 1e-5 of the analytic ones (normwise)."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver.normal_eq import edge_terms
+
+    g = _graph_seed(301, 141, 3, 4, cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t_ad = edge_terms(g, SolverConfig(use_autodiff_jacobians=True))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t = edge_terms(g, SolverConfig())
+    for name in ("bjp", "bjl", "ojs", "ojd"):
+        a, b = getattr(t_ad, name), getattr(t, name)
+        assert a.dtype == torch.float32 and a.is_cuda
+        assert ((a - b).abs().max() / b.abs().max()).item() < 1e-5, name

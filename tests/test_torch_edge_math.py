@@ -152,6 +152,17 @@ def test_gnc_threshold_schedule(kernel):
 
 
 def test_autodiff_jacobians_not_ported(graphs):
-    g, _ = graphs
-    with pytest.raises(NotImplementedError):
-        ne.edge_terms(g, SolverConfig(use_autodiff_jacobians=True))
+    """Autodiff Jacobians are ported now (tests/test_torch_autodiff.py holds
+    them against the JAX package): the edge terms under autodiff equal the
+    JAX package's on the same graph (Jacobians at test_jacobians.py's
+    rtol 1e-3, atol 2e-4; the other terms at ``EDGE_TOL``, as
+    test_edge_terms_and_stats holds them)."""
+    g, gj = graphs
+    t = ne.edge_terms(g, SolverConfig(use_autodiff_jacobians=True))
+    tj = ne_jax.edge_terms(gj, SolverConfigJax(use_autodiff_jacobians=True))
+    for name in ("bjp", "bjl", "ojs", "ojd"):
+        np.testing.assert_allclose(getattr(t, name).numpy(), np.asarray(getattr(tj, name)),
+                                   rtol=1e-3, atol=2e-4, err_msg=name)
+    for name in ("be", "oe", "bchi2", "ochi2", "bw_H", "ow_H"):
+        np.testing.assert_allclose(getattr(t, name).numpy(), np.asarray(getattr(tj, name)),
+                                   err_msg=name, **EDGE_TOL)

@@ -41,7 +41,8 @@ def test_synth_identical(loop_closures):
 
 
 def test_g2o_round_trip(tmp_path):
-    """Both writers emit the same text, and both parsers read it back the same."""
+    """Both writers emit the same text, and both Python parsers read it back
+    the same (the native ones: tests/test_torch_native_io.py)."""
     ig, gt = generate_sequence(60, 30, seed=2, loop_closures=2)
     for parsed in (ig, gt):
         p_t, p_j = tmp_path / "t.g2o", tmp_path / "j.g2o"
@@ -49,7 +50,8 @@ def test_g2o_round_trip(tmp_path):
         write_g2o(str(p_t), *args, parsed=parsed, fixed_pose_id=parsed.fixed_pose_id)
         write_g2o_jax(str(p_j), *args, parsed=parsed, fixed_pose_id=parsed.fixed_pose_id)
         assert p_t.read_text() == p_j.read_text()
-        _assert_parsed_equal(parse_g2o(str(p_t)), parse_g2o_jax(str(p_t), use_native=False))
+        _assert_parsed_equal(parse_g2o(str(p_t), use_native=False),
+                             parse_g2o_jax(str(p_t), use_native=False))
 
 
 def test_g2o_quirks(tmp_path):
@@ -61,7 +63,7 @@ def test_g2o_quirks(tmp_path):
     )
     path = tmp_path / "q.g2o"
     path.write_text(text)
-    got, want = parse_g2o(str(path)), parse_g2o_jax(str(path), use_native=False)
+    got, want = parse_g2o(str(path), use_native=False), parse_g2o_jax(str(path), use_native=False)
     _assert_parsed_equal(got, want)
     assert got.fixed_pose_id == 4 and got.bearing_omega[0] == 1.0 and got.bound == 10.5
 

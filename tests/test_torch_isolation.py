@@ -1,6 +1,7 @@
 """The port stands alone: importing it (or chip_smoke.py) pulls in neither
-JAX nor any module of the JAX package, and its entry points refuse to run
-on the CPU unless asked to."""
+JAX nor any module of the JAX package, nor matplotlib (absent where the
+card is; only --render and --interactive import it, when they run), and its
+entry points refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -20,9 +21,12 @@ import boslam_torch.graph.packed, boslam_torch.graph.reorder
 import boslam_torch.solver.btridiag, boslam_torch.solver.schur_packed
 import boslam_torch.solver.two_level, boslam_torch.solver.coarse
 import boslam_torch.init.pose_graph, boslam_torch.io.checkpoint
+import boslam_torch.solver.bband, boslam_torch.io.native, boslam_torch.viz.draw
+import boslam_torch.utils.profiling
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "boslam" or m.startswith("boslam."))
+             if m == "jax" or m.startswith("jax.") or m == "boslam" or m.startswith("boslam.")
+             or m == "matplotlib" or m.startswith("matplotlib."))
 print("BAD=" + ",".join(bad))
 """
 

@@ -137,22 +137,37 @@ def test_lm_few_iterations(linear_solver):
 ])
 @pytest.mark.parametrize("optimizer", ["gn", "lm"])
 def test_unported_fields_raise(field, value, optimizer):
-    """A field the port keeps only for parity with the JAX config is refused
-    at any value but its default, on every step, rather than ignored."""
+    """A field the port keeps only for parity with the JAX config (now only
+    ``dtype``, which the JAX package does not read either) is refused at any
+    value but its default, on every step, rather than ignored.  The fields
+    that are ported (the Cholesky backend, the bband width, bf16 coupling
+    storage) run a finite step at the same value on every path."""
     from boslam_torch.config import UNPORTED_FIELDS
     from boslam_torch.graph.build import build_graph
     from boslam_torch.synth import generate_sequence as generate_sequence_torch
 
-    assert field in UNPORTED_FIELDS
     g, _ = build_graph(generate_sequence_torch(20, 10, seed=0)[0], device="cpu")
     cfg = SolverConfig(linear_solver="schur", optimizer=optimizer, iters=1, **{field: value})
+
+    def step():
+        if optimizer == "gn":
+            return opt.gn_step(g, cfg)
+        return opt.lm_step(g, torch.ones(()), cfg)
+
+    if field not in UNPORTED_FIELDS:
+        assert UNPORTED_FIELDS == frozenset({"dtype"})
+        for c in (cfg, cfg.replace(linear_solver="dense")):
+            _, st = opt.solve(g, c)
+            assert torch.isfinite(st["chi2_robust"]).all() and st["spd_ok"].all()
+        st = step()[-1]
+        assert torch.isfinite(st["chi2_robust"]) and st["spd_ok"]
+        _, st = opt.solve_packed(g, cfg.replace(linear_solver="schur_cg", preconditioner="bband"))
+        assert torch.isfinite(st["chi2_robust"]).all()
+        return
     with pytest.raises(NotImplementedError, match=field):
         opt.solve(g, cfg)
     with pytest.raises(NotImplementedError, match=field):
-        if optimizer == "gn":
-            opt.gn_step(g, cfg)
-        else:
-            opt.lm_step(g, torch.ones(()), cfg)
+        step()
     opt.solve(g, cfg.replace(**{field: getattr(SolverConfig(), field)}))
 
 

@@ -6,7 +6,8 @@ of the same sums, and (``--jax``) the JAX package's own runs beside them.
 
 ``corridor``: generate_sequence(10000, 3900, seed, turn_every=10**9) for
 seeds 0-6 (``--seeds``), GN packed 10 iterations, "auto" (btridiag) or
-``--preconditioner`` (with ``--two-level-cycle``): windowed against
+``--preconditioner`` (with ``--two-level-cycle``; "bband" at its default
+width 8), with f32 or ``--coupling-dtype bfloat16`` blocks: windowed against
 take (the windowed path relabels the landmarks, so every landmark-keyed
 sum runs in another order).  ``big``: the 100k corridor, 5 iterations,
 "auto" (block-Jacobi), windowed against take, and the CG breakdown flags.
@@ -31,7 +32,8 @@ import torch
 
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return np.array2string(np.abs(a - b) / np.abs(b), precision=2, max_line_width=200)
+    return np.array2string(np.abs(a - b) / np.abs(b), max_line_width=200,
+                           formatter={"float_kind": lambda x: f"{x:.1e}"})
 
 
 def _graph(n, nl, seed, **kw):
@@ -139,11 +141,15 @@ def main():
     ap.add_argument("--preconditioner", default="auto",
                     help="corridor, big: the PCG preconditioner")
     ap.add_argument("--two-level-cycle", default="additive")
+    ap.add_argument("--coupling-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="corridor, big: the coupling blocks' storage")
     args = ap.parse_args()
     logging.disable(logging.WARNING)
     kw = {}
     if args.preconditioner != "auto":
         kw = dict(preconditioner=args.preconditioner, two_level_cycle=args.two_level_cycle)
+    if args.coupling_dtype != "float32":
+        kw["coupling_dtype"] = args.coupling_dtype
     for what in args.what:
         globals()[what](args.jax, seeds=args.seeds, **kw)
 
