@@ -5,7 +5,7 @@ Usage:
       [--linear-solver dense|schur|schur_cg] [--packed] [--optimizer gn|lm]
       [--pgo-init [--pgo-lm-rounds 2]] [--save state.npz] [--resume state.npz]
       [--render out.png] [--print-state] [--profile DIR] [--interactive]
-      [--iters N] [--device cuda|cpu]
+      [--sharded [--packed]] [--pose-range] [--iters N] [--device cuda|cpu]
   python -m boslam_torch synth --poses 300 --out /tmp/synth.g2o
   python -m boslam_torch bench <dataset.g2o> [--iters 50] [--device cuda|cpu]
 
@@ -22,6 +22,14 @@ API (``SolverConfig(gather="windowed")``), as in the JAX package.
 ``--interactive`` steps the solve from the keyboard; both need matplotlib.
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the solve.
 ``bench`` times three solves after a first one and prints one JSON line.
+
+``--sharded`` splits the edges over the ranks (with ``--packed``: the slot
+grids' columns), ``--pose-range`` the poses, landmarks and reduced system
+(``boslam_torch/parallel``).  Under ``torchrun`` (RANK and WORLD_SIZE set)
+the solve joins that group, NCCL on ``cuda`` and gloo on ``cpu``; without
+it, it runs on a one-rank group.  Only rank 0 prints and writes files.
+``--resume`` restores the LM damping, the warm-start delta and the GNC
+schedule's offset on all three.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 import time
 
@@ -80,6 +89,12 @@ def _add_solver_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--coupling-dtype", choices=["float32", "bfloat16"], default="float32",
                    help="packed path: storage dtype of the Schur coupling blocks "
                         "(bfloat16 halves their bytes; f32 sums)")
+    p.add_argument("--sharded", action="store_true",
+                   help="split the edges over the ranks of the group (with --packed: the "
+                        "slot grids' columns)")
+    p.add_argument("--pose-range", action="store_true",
+                   help="pose-range sharding: state, grids and reduced system 1/D per rank "
+                        "(parallel/pose_range.py); packed layout, block_jacobi or two_level")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
 
@@ -127,6 +142,32 @@ def _have_matplotlib(flag: str) -> bool:
 
 
 def cmd_solve(args) -> int:
+    if args.render and not _have_matplotlib("--render"):
+        return 2
+    if args.interactive and not _have_matplotlib("--interactive"):
+        return 2
+    mesh = None
+    if args.sharded or args.pose_range:
+        from boslam_torch.parallel.mesh import initialize_distributed, make_mesh
+
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            initialize_distributed(args.device)
+        mesh = make_mesh(args.device)
+    try:
+        if mesh is None or mesh.rank == 0:
+            return _solve(args, mesh)
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+                contextlib.redirect_stderr(null):
+            return _solve(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _solve(args, mesh) -> int:
+    """The solve subcommand on this rank; only rank 0 writes files."""
     import numpy as np
 
     from boslam_torch.graph.build import build_graph
@@ -134,17 +175,15 @@ def cmd_solve(args) -> int:
     from boslam_torch.metrics import ate_metrics, match_gt_landmarks, match_gt_poses
     from boslam_torch.solver.optimizer import solve, solve_packed
 
-    if args.render and not _have_matplotlib("--render"):
-        return 2
-    if args.interactive and not _have_matplotlib("--interactive"):
-        return 2
+    writer = mesh is None or mesh.rank == 0
     parsed = parse_g2o(args.dataset)
     graph, meta = build_graph(parsed, init=args.init, device=args.device)
     cfg = _cfg_from_args(args)
     print(
         f"loaded {graph.n_poses} poses, {graph.n_landmarks} landmarks, "
         f"{graph.n_bearing} bearing + {graph.n_odometry} odometry edges; "
-        f"gauge pose id {meta.fixed_pose_id}; device {graph.device}",
+        f"gauge pose id {meta.fixed_pose_id}; device {graph.device}"
+        + ("" if mesh is None else f"; {mesh.size} rank(s), {mesh.backend}"),
         file=sys.stderr,
     )
     if args.pgo_init:
@@ -174,7 +213,7 @@ def cmd_solve(args) -> int:
         if remaining == 0:
             print("checkpoint already past --iters; nothing to do", file=sys.stderr)
 
-    if args.render:
+    if args.render and writer:
         from boslam_torch.viz.draw import save_render
 
         save_render(
@@ -192,19 +231,33 @@ def cmd_solve(args) -> int:
         return _interactive_loop(graph, meta, cfg)
 
     profiling = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and writer:
         from boslam_torch.utils.profiling import trace
 
         profiling = trace(args.profile)
     t0 = time.perf_counter()
     with profiling:
-        if args.packed:
+        if args.pose_range:
+            from boslam_torch.parallel.pose_range import pose_range_solve
+
+            g2, stats = pose_range_solve(graph, cfg, mesh, lam0=lam0, dp0=dp0,
+                                         start_iter=start_iter)
+        elif args.sharded and args.packed:
+            from boslam_torch.parallel.sharded_packed import sharded_packed_solve
+
+            g2, stats = sharded_packed_solve(graph, cfg, mesh, lam0=lam0, dp0=dp0,
+                                             start_iter=start_iter)
+        elif args.sharded:
+            from boslam_torch.parallel.sharded import sharded_solve
+
+            g2, stats = sharded_solve(graph, cfg, mesh, lam0=lam0)
+        elif args.packed:
             g2, stats = solve_packed(graph, cfg, lam0=lam0, dp0=dp0, start_iter=start_iter)
         else:
             g2, stats = solve(graph, cfg, lam0=lam0)
         _sync(graph.device)
     wall = time.perf_counter() - t0
-    if args.profile:
+    if args.profile and writer:
         print(f"profile trace written to {args.profile}", file=sys.stderr)
 
     st = {k: v.cpu().numpy() for k, v in stats.items()}
@@ -228,6 +281,8 @@ def cmd_solve(args) -> int:
         gt = parse_g2o(args.gt)
         m = ate_metrics(poses, match_gt_poses(meta, gt), landmarks, match_gt_landmarks(meta, gt))
         print("ATE vs ground truth: " + json.dumps(m))
+    if not writer:
+        return 0
     if args.render:
         from boslam_torch.viz.draw import save_render
 

@@ -1,5 +1,5 @@
 """Block-banded preconditioner for the reduced camera system S (port of
-``boslam/solver/bband.py``, single device).
+``boslam/solver/bband.py``).
 
 T = band_w(S): the exact blocks S[i, i+d] for |d| <= w, the bearing Schur
 correction -B_i Hll^-1 B_j^T of pose pairs that co-observe a landmark
@@ -50,7 +50,7 @@ def _specnorm(B: torch.Tensor, iters: int = 10) -> torch.Tensor:
     return torch.sqrt(torch.sum(w * w, dim=-1))
 
 
-def assemble_sband(blocks, pk, w: int, mask: torch.Tensor, compensate: bool = False):
+def assemble_sband(blocks, pk, w: int, mask: torch.Tensor, compensate: bool = False, mesh=None):
     """(diag f32[NP,3,3], band f32[w,NP,3,3]) of the reduced system S.
 
     ``band[d-1, i] = S[i, i+d]`` for ``i < NP-d`` (zero rows past that).
@@ -61,6 +61,12 @@ def assemble_sband(blocks, pk, w: int, mask: torch.Tensor, compensate: bool = Fa
     the record): every dropped out-of-band correction block adds a
     Frobenius bound of its norm to both of its rows' diagonals, which makes
     T SPD by construction.
+
+    Under a ``mesh`` the grids are the rank's slot columns, but the slot
+    match of rows i and i+d is a product of per-slot sums, so partial
+    products do not add up: W, Bp and p_lm are all-gathered along the slot
+    axis (once per outer iteration; the same numbers as the JAX package's
+    zero-padded psum), and the odometry partials are psums.
     """
     from boslam_torch.solver.schur_packed import _take, packed_s_diag
 
@@ -69,8 +75,10 @@ def assemble_sband(blocks, pk, w: int, mask: torch.Tensor, compensate: bool = Fa
     Bp = blocks.Bp.float()  # bf16 storage is exact in f32
     Hinv_g = _take(blocks.Hll_inv, p_lm, pk.p_plan)  # [NP, K, 2, 2]
     W = torch.einsum("pkij,pkjl->pkil", Bp, Hinv_g)  # [NP, K, 3, 2]
+    if mesh is not None:
+        W, Bp, p_lm = (mesh.all_gather(x, dim=1) for x in (W, Bp, p_lm))
 
-    diag = packed_s_diag(blocks, pk)
+    diag = packed_s_diag(blocks, pk, mesh)
     eye3 = torch.eye(3, dtype=diag.dtype, device=diag.device)
     m1 = mask.reshape(-1)  # [NP] (the solver's mask is [NP, 1])
     diag = m1[:, None, None] * diag + (1.0 - m1[:, None, None]) * eye3
@@ -102,6 +110,8 @@ def assemble_sband(blocks, pk, w: int, mask: torch.Tensor, compensate: bool = Fa
         rev = (o_src - o_dst == d)[:, None, None].to(Ho.dtype)
         ob = _segment_sum(Ho * fwd, o_src, NP_)[: NP_ - d]
         ob = ob + _segment_sum(Ho.transpose(1, 2) * rev, o_dst, NP_)[: NP_ - d]
+        if mesh is not None:
+            ob = mesh.psum(ob)
         bd = (bd + ob) * (m1[: NP_ - d, None, None] * m1[d:, None, None])
         bands.append(torch.cat([bd, bd.new_zeros((d, 3, 3))]))
     band = torch.stack(bands) if bands else Ho.new_zeros((0, NP_, 3, 3))
@@ -113,6 +123,8 @@ def assemble_sband(blocks, pk, w: int, mask: torch.Tensor, compensate: bool = Fa
         far = (torch.abs(o_dst - o_src) > w).to(Ho.dtype)
         nrmO = torch.sqrt(torch.sum(Ho * Ho, dim=(-2, -1))) * far
         ocomp = _segment_sum(nrmO, o_src, NP_) + _segment_sum(nrmO, o_dst, NP_)
+        if mesh is not None:
+            ocomp = mesh.psum(ocomp)
         comp = (comp + ocomp) * m1
         diag = diag + comp[:, None, None] * eye3
     return diag, band

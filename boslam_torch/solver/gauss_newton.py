@@ -62,13 +62,16 @@ def solve_gauge_fixed(H, b, mask, cfg: SolverConfig | None = None):
     return delta, spd_ok
 
 
-def gn_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping):
+def gn_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, mesh=None):
     """Assemble, damp, gauge-fix, solve.
 
     Returns (delta_poses, delta_landmarks, terms, spd_ok, extra), with
-    ``extra`` empty (the signature is shared with the Schur path).
+    ``extra`` empty (the signature is shared with the Schur path).  Under
+    edge sharding (``mesh``) the assembly psums the partial H and b, and
+    the solve runs replicated on every rank, through the Cholesky kernel
+    on the card.
     """
-    H, b, terms = assemble_dense(g, cfg)
+    H, b, terms = assemble_dense(g, cfg, mesh=mesh)
     N = g.state_dim
     H = H + damping * torch.eye(N, dtype=H.dtype, device=H.device)
     mask = gauge_mask(N, g.n_poses, g.fixed_pose_ix, H.dtype)

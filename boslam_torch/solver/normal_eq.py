@@ -6,6 +6,9 @@ Every edge's dense Jacobian blocks are computed at once
 ("scatter") or by products with one-hot design matrices ("matmul").  The
 one-hot products are plain large matrix products, left to ``torch.matmul``
 as the JAX package leaves them to XLA.
+
+Under edge sharding (``mesh``, ``parallel/mesh.py``; None is one device)
+each rank assembles its edge shard and the sums are completed by ``psum``.
 """
 
 from __future__ import annotations
@@ -87,9 +90,10 @@ def edge_terms(g: FactorGraph, cfg: SolverConfig) -> EdgeTerms:
     return EdgeTerms(be, bjp, bjl, bw_H, bw_b, bchi2, oe, ojs, ojd, ow_H, ow_b, ochi2)
 
 
-def chi2_stats(t: EdgeTerms, cfg: SolverConfig) -> dict:
-    """Per-iteration chi2 statistics, as tensors (no host sync)."""
-    return {
+def chi2_stats(t: EdgeTerms, cfg: SolverConfig, mesh=None) -> dict:
+    """Per-iteration chi2 statistics, as tensors (no host sync), summed over
+    the edge shards under a ``mesh``."""
+    stats = {
         "chi2_bearing": torch.sum(t.bchi2),
         "chi2_odometry": torch.sum(t.ochi2),
         "chi2_robust": torch.sum(robust_cost(t.bchi2, cfg))
@@ -97,6 +101,7 @@ def chi2_stats(t: EdgeTerms, cfg: SolverConfig) -> dict:
         "n_bearing_clamped": torch.sum(t.bchi2 > cfg.kernel_threshold),
         "n_odometry_clamped": torch.sum(t.ochi2 > cfg.kernel_threshold),
     }
+    return stats if mesh is None else mesh.psum_dict(stats)
 
 
 def _bearing_cols(g: FactorGraph) -> torch.Tensor:
@@ -149,15 +154,25 @@ def _scatter_blocks(M: torch.Tensor, cols: torch.Tensor, blocks: torch.Tensor) -
     M.view(-1).index_add_(0, flat, blocks.reshape(-1))
 
 
-def assemble_dense(g: FactorGraph, cfg: SolverConfig, terms: EdgeTerms | None = None):
+def assemble_dense(g: FactorGraph, cfg: SolverConfig, terms: EdgeTerms | None = None,
+                   mesh=None):
     """Full dense H f32[N,N] and b f32[N] (pre gauge-fix, pre damping).
 
     The robust quirk is preserved: w_H weights the H contribution, w_b the
     b contribution.  In scatter mode on CUDA, ``index_add_`` sums by
-    atomics in an order that changes from run to run.
+    atomics in an order that changes from run to run.  Under a ``mesh``
+    the rank's partial H and b are completed by one psum.
     """
     if use_matmul_assembly(g, cfg):
-        return assemble_dense_matmul(g, cfg, terms)
+        H, b, terms = assemble_dense_matmul(g, cfg, terms)
+    else:
+        H, b, terms = _assemble_dense_scatter(g, cfg, terms)
+    if mesh is not None:
+        H, b = mesh.psum(H, b)
+    return H, b, terms
+
+
+def _assemble_dense_scatter(g: FactorGraph, cfg: SolverConfig, terms: EdgeTerms | None):
     if terms is None:
         terms = edge_terms(g, cfg)
     N = g.state_dim

@@ -8,6 +8,11 @@ leading ``iters`` axis.  GN under the exact Schur solve takes the
 whole-step path (``ops/gn_step.py``) where ``_fused_step_applicable``
 admits the graph, as the JAX package does.  ``solve_packed`` runs the
 dual-packed Schur+PCG scale path (``schur_packed.py``).
+
+``mesh`` (``parallel/mesh.py``) runs a step, a loop or the packed loop on
+an edge-sharded graph: the state is replicated, the edges are the rank's
+shard, and the sums are completed by collectives, as the JAX package's
+``axis_name`` does.  The whole-step path is off under a mesh, as there.
 """
 
 from __future__ import annotations
@@ -45,13 +50,13 @@ def _fused_step_applicable(g: FactorGraph, cfg: SolverConfig) -> bool:
     return cfg.fused_step == "force" or g.poses.is_cuda
 
 
-def _build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, band_tiles=None):
+def _build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, band_tiles=None, mesh=None):
     if cfg.linear_solver == "dense":
-        return GN.gn_build_and_solve(g, cfg, damping)
+        return GN.gn_build_and_solve(g, cfg, damping, mesh=mesh)
     if cfg.linear_solver in ("schur", "schur_cg"):
         from boslam_torch.solver import schur
 
-        return schur.schur_build_and_solve(g, cfg, damping, band_tiles=band_tiles)
+        return schur.schur_build_and_solve(g, cfg, damping, band_tiles=band_tiles, mesh=mesh)
     raise ValueError(f"unknown linear_solver {cfg.linear_solver!r}")
 
 
@@ -59,19 +64,19 @@ def _delta_norm(dp, dl):
     return torch.sqrt(torch.sum(dp * dp) + torch.sum(dl * dl))
 
 
-def gn_step(g: FactorGraph, cfg: SolverConfig, band_tiles: int | None = None):
+def gn_step(g: FactorGraph, cfg: SolverConfig, band_tiles: int | None = None, mesh=None):
     """One constant-damping GN iteration.  ``band_tiles`` picks the route
     of the Schur kernel (``schur.kernel_band``, computed once per solve by
     ``solve_loop``) or of the whole step (``gn_step.tile_band``); None
     takes the dense route."""
     _check_ported(cfg)
-    if _fused_step_applicable(g, cfg):
+    if mesh is None and _fused_step_applicable(g, cfg):
         from boslam_torch.ops.gn_step import fused_gn_step
 
         return fused_gn_step(g, cfg, band_tiles)
-    dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, cfg.damping, band_tiles)
+    dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, cfg.damping, band_tiles, mesh)
     poses, landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
-    stats = chi2_stats(terms, cfg)
+    stats = chi2_stats(terms, cfg, mesh)
     stats.update(extra)
     stats["spd_ok"] = spd_ok
     stats["accepted"] = torch.ones((), dtype=torch.bool, device=g.device)
@@ -80,23 +85,27 @@ def gn_step(g: FactorGraph, cfg: SolverConfig, band_tiles: int | None = None):
     return g.with_state(poses, landmarks), stats
 
 
-def _robust_total(g: FactorGraph, cfg: SolverConfig) -> torch.Tensor:
+def _robust_total(g: FactorGraph, cfg: SolverConfig, mesh=None) -> torch.Tensor:
     t = edge_terms(g, cfg)
-    return torch.sum(robust_cost(t.bchi2, cfg)) + torch.sum(robust_cost(t.ochi2, cfg))
+    total = torch.sum(robust_cost(t.bchi2, cfg)) + torch.sum(robust_cost(t.ochi2, cfg))
+    return total if mesh is None else mesh.psum(total)
 
 
 def lm_step(g: FactorGraph, lam: torch.Tensor, cfg: SolverConfig,
-            band_tiles: int | None = None):
+            band_tiles: int | None = None, mesh=None):
     """One LM trial: solve with damping ``lam``, accept iff the robust cost
     decreases, and scale lam down (accept) or up (reject).  ``band_tiles``
-    as in ``gn_step``."""
+    as in ``gn_step``.  Under a ``mesh`` both costs are psums, so every
+    rank takes the same decision."""
     _check_ported(cfg)
-    dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, lam, band_tiles)
+    dp, dl, terms, spd_ok, extra = _build_and_solve(g, cfg, lam, band_tiles, mesh)
     cand_poses, cand_landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
     cand = g.with_state(cand_poses, cand_landmarks)
 
     cost_old = torch.sum(robust_cost(terms.bchi2, cfg)) + torch.sum(robust_cost(terms.ochi2, cfg))
-    cost_new = _robust_total(cand, cfg)
+    if mesh is not None:
+        cost_old = mesh.psum(cost_old)
+    cost_new = _robust_total(cand, cfg, mesh)
     accept = (cost_new < cost_old) & spd_ok
 
     poses = torch.where(accept, cand.poses, g.poses)
@@ -107,7 +116,7 @@ def lm_step(g: FactorGraph, lam: torch.Tensor, cfg: SolverConfig,
         torch.clamp(lam * cfg.lm_up, max=cfg.lm_lambda_max),
     )
 
-    stats = chi2_stats(terms, cfg)
+    stats = chi2_stats(terms, cfg, mesh)
     stats.update(extra)
     stats["spd_ok"] = spd_ok
     stats["accepted"] = accept
@@ -122,18 +131,19 @@ def _stack(per_iter: list) -> dict:
     return {k: torch.stack([s[k] for s in per_iter]) for k in per_iter[0]}
 
 
-def solve_loop(graph: FactorGraph, cfg: SolverConfig, lam0: torch.Tensor | None = None):
+def solve_loop(graph: FactorGraph, cfg: SolverConfig, lam0: torch.Tensor | None = None,
+               mesh=None):
     """Run ``cfg.iters`` optimizer iterations on the graph's device.
 
     Returns the optimized graph and per-iteration stats (each value a
     tensor with a leading ``iters`` axis; under LM also ``lam_final``, the
     next trial's damping, which a checkpoint saves).  ``lam0`` overrides
-    the initial LM damping.
+    the initial LM damping.  ``mesh``: the graph is the rank's edge shard.
     """
     _check_ported(cfg)
     per_iter = []
     g = graph
-    if cfg.optimizer == "gn" and _fused_step_applicable(graph, cfg):
+    if cfg.optimizer == "gn" and mesh is None and _fused_step_applicable(graph, cfg):
         from boslam_torch.ops.gn_step import fused_gn_solve
 
         return fused_gn_solve(graph, cfg)
@@ -141,17 +151,18 @@ def solve_loop(graph: FactorGraph, cfg: SolverConfig, lam0: torch.Tensor | None 
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     from boslam_torch.solver.schur import kernel_band
 
-    band = kernel_band(graph, cfg)  # the Schur kernel's route, once per solve
+    # the Schur kernel's route, once per solve (no kernel under a mesh)
+    band = None if mesh is not None else kernel_band(graph, cfg)
     if cfg.optimizer == "gn":
         for _ in range(cfg.iters):
-            g, stats = gn_step(g, cfg, band)
+            g, stats = gn_step(g, cfg, band, mesh)
             per_iter.append(stats)
         return g, _stack(per_iter)
     lam = lam0
     if lam is None:
         lam = torch.full((), cfg.lm_lambda0, dtype=graph.poses.dtype, device=graph.device)
     for _ in range(cfg.iters):
-        g, lam, stats = lm_step(g, lam, cfg, band)
+        g, lam, stats = lm_step(g, lam, cfg, band, mesh)
         per_iter.append(stats)
     stats = _stack(per_iter)
     stats["lam_final"] = lam
@@ -169,7 +180,7 @@ def solve(graph: FactorGraph, cfg: SolverConfig, lam0: float | None = None):
 
 
 def packed_solve_loop(graph: FactorGraph, pk, cfg: SolverConfig, lam0: torch.Tensor | None = None,
-                      dp0: torch.Tensor | None = None, start_iter: int = 0):
+                      dp0: torch.Tensor | None = None, start_iter: int = 0, mesh=None):
     """``cfg.iters`` packed optimizer steps (GN or LM) on the graph's device.
 
     ``lam0`` restores the LM damping and ``dp0`` the warm-start delta;
@@ -177,6 +188,8 @@ def packed_solve_loop(graph: FactorGraph, pk, cfg: SolverConfig, lam0: torch.Ten
     computed on the host from the iteration index.  ``stats["dp_final"]``
     is the last outer delta and, under LM, ``stats["lam_final"]`` the next
     trial's damping; every other stat has a leading ``iters`` axis.
+    ``mesh``: the graph's edges and the grids' slot columns are the rank's
+    shard.
     """
     from boslam_torch.solver.schur_packed import packed_gn_step, packed_lm_step
 
@@ -192,9 +205,9 @@ def packed_solve_loop(graph: FactorGraph, pk, cfg: SolverConfig, lam0: torch.Ten
     for i in range(cfg.iters):
         kt = cfg.kt_at(start_iter + i)
         if cfg.optimizer == "gn":
-            g, stats, dp = packed_gn_step(g, pk, cfg, dp, kt=kt)
+            g, stats, dp = packed_gn_step(g, pk, cfg, dp, kt=kt, mesh=mesh)
         else:
-            g, lam, stats, dp = packed_lm_step(g, pk, cfg, lam, dp, kt=kt)
+            g, lam, stats, dp = packed_lm_step(g, pk, cfg, lam, dp, kt=kt, mesh=mesh)
         per_iter.append(stats)
     stats = _stack(per_iter)
     stats["dp_final"] = dp

@@ -14,6 +14,13 @@ S = Hpp - Hpl Hll^-1 Hlp (3*NP square) is solved
   chain scheme (``solver/two_level.py``).
 
 ``pcg`` is also the inner solver of the packed path (``schur_packed.py``).
+
+Under edge sharding (``mesh``, ``parallel/mesh.py``; None is one device)
+the state and the reduced system are replicated and the edge arrays are
+the rank's shard: the per-vertex sums are completed by ``psum`` before
+damping and inversion, and each CG matvec takes two psums.  The Schur
+kernel is not used under a mesh (the JAX package's gate); the exact path
+materializes S and solves it on every rank.
 """
 
 from __future__ import annotations
@@ -60,8 +67,10 @@ def _segment_sum(v: torch.Tensor, ix: torch.Tensor, n: int) -> torch.Tensor:
     return out.index_add_(0, ix, v)
 
 
-def build_blocks(g: FactorGraph, cfg: SolverConfig, damping, terms: EdgeTerms | None = None):
-    """Assemble the block-sparse damped H and b by segment sums."""
+def build_blocks(g: FactorGraph, cfg: SolverConfig, damping, terms: EdgeTerms | None = None,
+                 mesh=None):
+    """Assemble the block-sparse damped H and b by segment sums; under a
+    ``mesh`` the per-vertex sums are completed before damping."""
     if terms is None:
         terms = edge_terms(g, cfg)
     NP_, NL = g.n_poses, g.n_landmarks
@@ -104,6 +113,8 @@ def build_blocks(g: FactorGraph, cfg: SolverConfig, damping, terms: EdgeTerms | 
     pose_sums = _segment_sum(pose_payload, pose_idx, NP_)
     Hpp_diag = pose_sums[:, :9].reshape(NP_, 3, 3)
     bp = pose_sums[:, 9:12]
+    if mesh is not None:
+        Hpp_diag, Hll, bp, bl = mesh.psum(Hpp_diag, Hll, bp, bl)
 
     # damping: a float or a device tensor (LM), never copied to the card
     Hpp_diag = Hpp_diag + damping * torch.eye(3, dtype=dtype, device=dev)
@@ -116,11 +127,14 @@ def _pose_mask(NP_: int, fixed_ix: torch.Tensor, dtype) -> torch.Tensor:
     return (torch.arange(NP_, device=fixed_ix.device) != fixed_ix).to(dtype)[:, None]
 
 
-def s_matvec(blocks: SchurBlocks, g: FactorGraph, x: torch.Tensor, mask: torch.Tensor):
+def s_matvec(blocks: SchurBlocks, g: FactorGraph, x: torch.Tensor, mask: torch.Tensor,
+             mesh=None):
     """y = S_masked @ x with S = Hpp - Hpl Hll^-1 Hlp, x f32[NP, 3].
 
     The gauge mask zeroes the fixed pose's rows and columns and pins its
-    diagonal to the identity, as the dense path masks.
+    diagonal to the identity, as the dense path masks.  Under a ``mesh``
+    the edge-coupled partials are completed by two psums: (y_edge, z) in
+    one call, then the back-coupling.
     """
     NP_, NL, NO = g.n_poses, g.n_landmarks, g.n_odometry
     xm = x * mask
@@ -132,19 +146,26 @@ def s_matvec(blocks: SchurBlocks, g: FactorGraph, x: torch.Tensor, mask: torch.T
     # Hlp x into landmark space, Hll^-1, then back through Hpl
     z = torch.einsum("eji,ej->ei", blocks.Hpl, xm[g.b_pose])
     z = _segment_sum(z, g.b_lm, NL)
+    if mesh is not None:
+        y_edge, z = mesh.psum(y_edge, z)
     y = torch.einsum("pij,pj->pi", blocks.Hpp_diag, xm) + y_edge
     w = torch.einsum("lij,lj->li", blocks.Hll_inv, z)
-    yb = torch.einsum("eij,ej->ei", blocks.Hpl, w[g.b_lm])
-    y = y - _segment_sum(yb, g.b_pose, NP_)
+    yb = _segment_sum(torch.einsum("eij,ej->ei", blocks.Hpl, w[g.b_lm]), g.b_pose, NP_)
+    if mesh is not None:
+        yb = mesh.psum(yb)
+    y = y - yb
     # identity on the fixed block keeps CG well-posed there
     return y * mask + x * (1.0 - mask)
 
 
-def s_diag_blocks(blocks: SchurBlocks, g: FactorGraph) -> torch.Tensor:
+def s_diag_blocks(blocks: SchurBlocks, g: FactorGraph, mesh=None) -> torch.Tensor:
     """Exact 3x3 diagonal of S for the block-Jacobi preconditioner:
     Hpp_ii - sum_e Hpl_e Hll_inv[lm_e] Hpl_e^T over the edges at pose i."""
     corr = torch.einsum("eij,ejk,elk->eil", blocks.Hpl, blocks.Hll_inv[g.b_lm], blocks.Hpl)
-    return blocks.Hpp_diag - _segment_sum(corr, g.b_pose, g.n_poses)
+    corr = _segment_sum(corr, g.b_pose, g.n_poses)
+    if mesh is not None:
+        corr = mesh.psum(corr)
+    return blocks.Hpp_diag - corr
 
 
 def _inv3x3(A: torch.Tensor) -> torch.Tensor:
@@ -172,14 +193,19 @@ def _inv3x3(A: torch.Tensor) -> torch.Tensor:
     return adj * inv_det
 
 
-def poll(flag: torch.Tensor) -> bool:
-    """Read a device flag on the host: the CG loop's one wait for the card."""
+def poll(flag: torch.Tensor, mesh=None) -> bool:
+    """Read a device flag on the host: the CG loop's one wait for the card.
+    Under a ``mesh`` the flag is first the maximum over the ranks, so that
+    every rank takes the same branch (a rank that left the loop while
+    another entered a collective would hang the group)."""
+    if mesh is not None:
+        flag = mesh.pmax(flag)
     with host_sync(flag.device):
         return bool(flag.item())
 
 
 def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int = 0,
-        poll_every: int = CG_POLL_EVERY):
+        poll_every: int = CG_POLL_EVERY, mesh=None, split: bool = False):
     """Preconditioned conjugate gradients over pose-block arrays f32[NP, 3].
 
     ``precond`` is a batched 3x3 block-inverse array (block-Jacobi) or a
@@ -204,6 +230,12 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     body and leaves the loop when it is false; the frozen bodies run in
     between (at most ``poll_every - 1`` per solve) are the price, counted
     in ``info["matvecs"]``.
+
+    ``mesh``: the ranks of a multi-device layout, whose polls go through
+    ``poll``'s maximum.  ``split``: the vectors are split over the ranks
+    (the pose-range layout) and the dots are completed by a psum, as the
+    JAX package's ``axis_name``; the edge-sharded layouts keep replicated
+    vectors and local dots.
     """
     if callable(precond):
         apply_m = precond
@@ -211,7 +243,8 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
         apply_m = lambda r: torch.einsum("pij,pj->pi", precond, r)  # noqa: E731
 
     def dot(u, v):
-        return torch.sum(u * v)
+        d = torch.sum(u * v)
+        return mesh.psum(d) if split else d
 
     tiny = torch.finfo(rhs.dtype).tiny
     tol2 = tol * tol
@@ -241,7 +274,7 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     for it in range(max_iters):
         if it % poll_every == 0:
             polls += 1
-            if not poll(active):
+            if not poll(active, mesh):
                 break
         Ap = matvec(p)
         matvecs += 1
@@ -284,16 +317,17 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     return x_out, k, rr_out / b2, breakdown, {"matvecs": matvecs, "polls": polls, "events": nbrk}
 
 
-def flat_chain_band(blocks: SchurBlocks, g: FactorGraph) -> torch.Tensor:
+def flat_chain_band(blocks: SchurBlocks, g: FactorGraph, mesh=None) -> torch.Tensor:
     """f32[NP-1, 3, 3] odometry-chain band from the flat edge arrays: the
     coupling between poses i and i+1 summed over every consecutive-pair
     edge; other edges affect preconditioner quality only."""
     is_band = (g.o_dst == g.o_src + 1)[:, None, None].to(blocks.Ho_sd.dtype)
-    return _segment_sum(blocks.Ho_sd * is_band, g.o_src, g.n_poses - 1)
+    band = _segment_sum(blocks.Ho_sd * is_band, g.o_src, g.n_poses - 1)
+    return band if mesh is None else mesh.psum(band)
 
 
 def _flat_preconditioner(blocks: SchurBlocks, g: FactorGraph, cfg: SolverConfig,
-                         mask: torch.Tensor):
+                         mask: torch.Tensor, mesh=None):
     """PCG preconditioner of the flat path: block-Jacobi diag(S), the
     PD-clamped block-tridiagonal chain solve, or the two-level chain scheme
     (``solver/two_level.py``).  "auto" takes the chain solve up to 32768
@@ -305,10 +339,10 @@ def _flat_preconditioner(blocks: SchurBlocks, g: FactorGraph, cfg: SolverConfig,
     if which not in ("block_jacobi", "bband", "btridiag", "two_level"):
         raise ValueError(f"unknown preconditioner {cfg.preconditioner!r}")
     eye3 = torch.eye(3, dtype=blocks.Hpp_diag.dtype, device=g.device)
-    d = mask[..., None] * s_diag_blocks(blocks, g) + (1.0 - mask[..., None]) * eye3
+    d = mask[..., None] * s_diag_blocks(blocks, g, mesh) + (1.0 - mask[..., None]) * eye3
     if which in ("block_jacobi", "bband") or NP_ <= 1:
         return _inv3x3(d)
-    band = flat_chain_band(blocks, g) * (mask[:-1, :, None] * mask[1:, :, None])
+    band = flat_chain_band(blocks, g, mesh) * (mask[:-1, :, None] * mask[1:, :, None])
     if which == "two_level":
         from boslam_torch.solver.two_level import aggregate_size, two_level_factor, two_level_solve
 
@@ -341,8 +375,10 @@ def _scatter(M: torch.Tensor, rows, cols, vals) -> None:
     M.index_put_((r.reshape(-1), c.reshape(-1)), vals.reshape(-1), accumulate=True)
 
 
-def _dense_pieces(blocks: SchurBlocks, g: FactorGraph):
-    """Dense damped Hpp [3NP, 3NP] and coupling U [3NP, 2NL] from the blocks."""
+def _dense_pieces(blocks: SchurBlocks, g: FactorGraph, mesh=None):
+    """Dense damped Hpp [3NP, 3NP] and coupling U [3NP, 2NL] from the blocks.
+    Under a ``mesh`` the edge-scattered parts are completed by one psum
+    before the (replicated) diagonal blocks are added."""
     NP_, NL = g.n_poses, g.n_landmarks
     dtype, dev = g.poses.dtype, g.device
     ar3 = torch.arange(3, device=dev)
@@ -351,19 +387,22 @@ def _dense_pieces(blocks: SchurBlocks, g: FactorGraph):
     d3 = 3 * g.o_dst[:, None] + ar3
     _scatter(Hpp, s3, d3, blocks.Ho_sd)
     _scatter(Hpp, d3, s3, blocks.Ho_sd.transpose(1, 2))
-    ix3 = 3 * torch.arange(NP_, device=dev)[:, None] + ar3
-    _scatter(Hpp, ix3, ix3, blocks.Hpp_diag)
     U = torch.zeros((3 * NP_, 2 * NL), dtype=dtype, device=dev)
     bp3 = 3 * g.b_pose[:, None] + ar3
     bl2 = 2 * g.b_lm[:, None] + torch.arange(2, device=dev)
     _scatter(U, bp3, bl2, blocks.Hpl)
+    if mesh is not None:
+        Hpp, U = mesh.psum(Hpp, U)
+    ix3 = 3 * torch.arange(NP_, device=dev)[:, None] + ar3
+    _scatter(Hpp, ix3, ix3, blocks.Hpp_diag)
     return Hpp, U
 
 
-def dense_reduced_system(blocks: SchurBlocks, g: FactorGraph):
-    """Materialize S (3NP x 3NP) and the reduced rhs."""
+def dense_reduced_system(blocks: SchurBlocks, g: FactorGraph, mesh=None):
+    """Materialize S (3NP x 3NP) and the reduced rhs.  Under a ``mesh`` U
+    is completed before S = Hpp - U Hll^-1 U^T, which is quadratic in it."""
     NP_, NL = g.n_poses, g.n_landmarks
-    Hpp, U = _dense_pieces(blocks, g)
+    Hpp, U = _dense_pieces(blocks, g, mesh)
     W = torch.einsum("plh,lhj->plj", U.reshape(3 * NP_, NL, 2), blocks.Hll_inv).reshape(
         3 * NP_, 2 * NL
     )
@@ -448,7 +487,7 @@ def kernel_band(g: FactorGraph, cfg: SolverConfig) -> int | None:
 
 
 def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bool | None = None,
-                          band_tiles: int | None = None):
+                          band_tiles: int | None = None, mesh=None):
     """Schur linear solve; same interface as the dense path.
 
     Returns (delta_poses f32[NP,3], delta_landmarks f32[NL,2], terms, ok,
@@ -458,35 +497,42 @@ def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bo
     materialized and solved by ``solve_gauge_fixed`` under the same
     backend, as on the JAX package's non-TPU backends.  ``use_cg=True`` ("schur_cg"): matrix-free
     PCG to ``cfg.cg_tol``, a truncated inner solve of inexact Newton.
-    ``band_tiles`` (from ``kernel_band``) picks the kernel's route.
+    ``band_tiles`` (from ``kernel_band``) picks the kernel's route.  Under
+    edge sharding (``mesh``) the Schur kernel is not used, as in the JAX
+    package: S is completed by psums and solved on every rank (through
+    ``solve_gauge_fixed``, so by the Cholesky kernel on the card), and CG
+    runs replicated.
     """
     if use_cg is None:
         use_cg = cfg.linear_solver == "schur_cg"
     mask = _pose_mask(g.n_poses, g.fixed_pose_ix, g.poses.dtype)
     extra = {}
-    if not use_cg and _takes_kernel(g, cfg):
+    if not use_cg and mesh is None and _takes_kernel(g, cfg):
         terms = edge_terms(g, cfg)
         dp, dl = fused_schur_solve(g, cfg, damping, terms, mask, band_tiles)
         dp, dl, ok = _nan_guard(dp, dl)
         return dp, dl, terms, ok, extra
 
-    blocks, terms = build_blocks(g, cfg, damping)
+    blocks, terms = build_blocks(g, cfg, damping, mesh=mesh)
     if not use_cg:
         from boslam_torch.solver.gauss_newton import solve_gauge_fixed
 
-        S, rhs_flat = dense_reduced_system(blocks, g)
+        S, rhs_flat = dense_reduced_system(blocks, g, mesh)
         m = mask[:, 0].repeat_interleave(3)
         delta, _spd = solve_gauge_fixed(S, -rhs_flat, m, cfg)
         dp = delta.reshape(g.n_poses, 3)
     else:
         # reduced rhs: -bp + Hpl Hll^-1 bl, gauge-masked
         w = torch.einsum("lij,lj->li", blocks.Hll_inv, blocks.bl)
-        corr = torch.einsum("eij,ej->ei", blocks.Hpl, w[g.b_lm])
-        rhs = (-blocks.bp + _segment_sum(corr, g.b_pose, g.n_poses)) * mask
-        precond = _flat_preconditioner(blocks, g, cfg, mask)
+        corr = _segment_sum(torch.einsum("eij,ej->ei", blocks.Hpl, w[g.b_lm]), g.b_pose,
+                            g.n_poses)
+        if mesh is not None:
+            corr = mesh.psum(corr)
+        rhs = (-blocks.bp + corr) * mask
+        precond = _flat_preconditioner(blocks, g, cfg, mask, mesh)
         dp, n_iters, rel_res2, breakdown, info = pcg(
-            lambda x: s_matvec(blocks, g, x, mask), rhs, precond, cfg.cg_iters, cfg.cg_tol,
-            restarts=cfg.cg_restarts,
+            lambda x: s_matvec(blocks, g, x, mask, mesh), rhs, precond, cfg.cg_iters,
+            cfg.cg_tol, restarts=cfg.cg_restarts, mesh=mesh,
         )
         extra = cg_stats(n_iters, rel_res2, breakdown, info, g.device)
     dp = dp * mask  # exact zero delta on the gauge pose
@@ -494,6 +540,8 @@ def schur_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, use_cg: bo
     # landmark back-substitution: dl = Hll^-1 (-bl - Hlp dp)
     hlp_dp = torch.einsum("eji,ej->ei", blocks.Hpl, dp[g.b_pose])
     hlp_dp = _segment_sum(hlp_dp, g.b_lm, g.n_landmarks)
+    if mesh is not None:
+        hlp_dp = mesh.psum(hlp_dp)
     dl = torch.einsum("lij,lj->li", blocks.Hll_inv, -blocks.bl - hlp_dp)
     dp, dl, ok = _nan_guard(dp, dl)
     return dp, dl, terms, ok, extra

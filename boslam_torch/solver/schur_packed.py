@@ -1,5 +1,5 @@
 """Schur + PCG on the dual-packed layout, the scale-regime solver (port of
-``boslam/solver/schur_packed.py``, single device).
+``boslam/solver/schur_packed.py``).
 
 The math of ``schur.py``: every vertex-keyed reduction is a masked sum over
 the packed slot axis, and the indexed operations are row gathers of the
@@ -15,6 +15,13 @@ stored bf16 and every contraction with them (``_couple``) rounds the other
 operand to bf16 too and sums in f32, as the JAX package's MXU-native
 bf16 x bf16 -> f32 einsum; the CG tolerance is then clamped to
 ``BF16_CG_TOL_FLOOR``.
+
+Under a ``mesh`` (``parallel/sharded_packed.py``) the slot grids are the
+rank's slot columns and the odometry its edge shard; the state, the
+per-vertex blocks and the CG vectors are replicated.  The build completes
+its sums with one psum call, and each CG matvec takes two psums (z before
+the Hll^-1 back-coupling, then the y partials).  Odometry then takes the
+general gather/segment-sum path: a shard's place in the chain is unknown.
 """
 
 from __future__ import annotations
@@ -97,30 +104,32 @@ def _bearing_slot_terms(p_slot, l_slot, meas, omega, cfg, kt=None):
     return err, chi2, Hpp, Hll, B, coef * jp, coef * jl
 
 
-def _odometry_terms(g: FactorGraph, cfg: SolverConfig, kt=None):
-    """Odometry chi2 and blocks: (ochi2, H_ss, H_dd, H_sd, bp_s, bp_d)."""
-    ps, pd = g.poses[g.o_src], g.poses[g.o_dst]
-    oe = R.odometry_error_from(ps, pd, g.o_meas)
+def _odometry_terms(ps, pd, meas, omega, cfg: SolverConfig, kt=None):
+    """Odometry chi2 and blocks of edges with endpoint poses ``ps``, ``pd``:
+    (ochi2, H_ss, H_dd, H_sd, bp_s, bp_d)."""
+    oe = R.odometry_error_from(ps, pd, meas)
     js, jd = R.odometry_jacobians_from(ps, pd)
-    ochi2 = torch.einsum("ei,eij,ej->e", oe, g.o_omega, oe)
+    ochi2 = torch.einsum("ei,eij,ej->e", oe, omega, oe)
     owH, owb = robust_weights(ochi2, cfg, kt)
-    OmJs = torch.einsum("eij,ejk->eik", g.o_omega, js)
-    OmJd = torch.einsum("eij,ejk->eik", g.o_omega, jd)
+    OmJs = torch.einsum("eij,ejk->eik", omega, js)
+    OmJd = torch.einsum("eij,ejk->eik", omega, jd)
     w = owH[:, None, None]
     H_ss = w * torch.einsum("eai,eaj->eij", js, OmJs)
     H_dd = w * torch.einsum("eai,eaj->eij", jd, OmJd)
     H_sd = w * torch.einsum("eai,eaj->eij", js, OmJd)
-    e_w = torch.einsum("eij,ej->ei", g.o_omega, owb[:, None] * oe)
+    e_w = torch.einsum("eij,ej->ei", omega, owb[:, None] * oe)
     bp_s = torch.einsum("eij,ei->ej", js, e_w)
     bp_d = torch.einsum("eij,ei->ej", jd, e_w)
     return ochi2, H_ss, H_dd, H_sd, bp_s, bp_d
 
 
-def build_packed_blocks(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, damping, kt=None):
+def build_packed_blocks(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, damping, kt=None,
+                        mesh=None):
     """Damped packed normal-equation blocks and the chi2 stats of the state.
 
     ``damping`` is a float or a device scalar (LM); ``kt`` a host float or
-    None.  Returns (PackedBlocks, stats).
+    None.  Under a ``mesh`` the per-vertex sums and the stats are completed
+    by psums before damping.  Returns (PackedBlocks, stats).
     """
     NP_, NL = g.n_poses, g.n_landmarks
     dtype, dev = g.poses.dtype, g.device
@@ -145,8 +154,9 @@ def build_packed_blocks(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, damp
     bl = _lm_rows_sum(torch.sum(bl_b, dim=1), pk, NL)
 
     # odometry: shifts for the leading chain prefix, segment sum for the rest
-    ochi2, H_ss, H_dd, H_sd, bp_s, bp_d = _odometry_terms(g, cfg, kt)
-    nc, NO = pk.chain_len, g.n_odometry
+    ochi2, H_ss, H_dd, H_sd, bp_s, bp_d = _odometry_terms(
+        g.poses[g.o_src], g.poses[g.o_dst], g.o_meas, g.o_omega, cfg, kt)
+    nc, NO = (pk.chain_len if mesh is None else 0), g.n_odometry
     if nc > 0:
         Hpp_diag = Hpp_diag.clone()
         bp = bp.clone()
@@ -173,6 +183,9 @@ def build_packed_blocks(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, damp
         "n_bearing_clamped": torch.sum(bchi2_p > ktv),
         "n_odometry_clamped": torch.sum(ochi2 > ktv),
     }
+    if mesh is not None:
+        Hpp_diag, Hll, bp, bl, *vals = mesh.psum(Hpp_diag, Hll, bp, bl, *stats.values())
+        stats = dict(zip(stats, vals))
 
     Hpp_diag = Hpp_diag + damping * torch.eye(3, dtype=dtype, device=dev)
     Hll_inv = _inv2x2(Hll + damping * torch.eye(2, dtype=dtype, device=dev))
@@ -182,10 +195,11 @@ def build_packed_blocks(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, damp
     return PackedBlocks(Hpp_diag, Hll_inv, Bp, Bl, bp, bl, H_sd, g.o_src, g.o_dst), stats
 
 
-def _odometry_coupling(blocks: PackedBlocks, pk: PackedEdges, xm, NP_: int):
+def _odometry_coupling(blocks: PackedBlocks, pk: PackedEdges, xm, NP_: int, mesh=None):
     """(Ho_sd + Ho_sd^T cross terms) @ x over all odometry edges: shifts for
-    the chain prefix, one gather + segment sum for the rest."""
-    nc = pk.chain_len
+    the chain prefix, one gather + segment sum for the rest (all of them
+    under a ``mesh``, whose caller completes the partial)."""
+    nc = pk.chain_len if mesh is None else 0
     NO = blocks.Ho_sd.shape[0]
     y = torch.zeros((NP_, 3), dtype=xm.dtype, device=xm.device)
     if nc > 0:
@@ -210,8 +224,10 @@ def _chunked_rows(fn, arrs, n_rows: int, chunk: int):
     return torch.cat([fn(*[a[i:i + chunk] for a in arrs]) for i in range(0, n_rows, chunk)])
 
 
-def packed_s_matvec(blocks: PackedBlocks, pk: PackedEdges, x, mask, row_chunk: int = 0):
-    """y = S_masked @ x with two row gathers and, on a chain, no scatter."""
+def packed_s_matvec(blocks: PackedBlocks, pk: PackedEdges, x, mask, row_chunk: int = 0,
+                    mesh=None):
+    """y = S_masked @ x with two row gathers and, on a chain, no scatter;
+    under a ``mesh`` two psums (z, then the y partials)."""
     xm = x * mask
     NP_ = x.shape[0]
     use_chunks = row_chunk > 0 and pk.p_plan is None and pk.l_plan is None
@@ -223,6 +239,8 @@ def packed_s_matvec(blocks: PackedBlocks, pk: PackedEdges, x, mask, row_chunk: i
     else:
         z = _couple("lkij,lki->lj", blocks.Bl, _take(xm, pk.l_pose, pk.l_plan))
     z = _lm_rows_sum(z, pk, blocks.Hll_inv.shape[0])
+    if mesh is not None:
+        z = mesh.psum(z)
     w = torch.einsum("lij,lj->li", blocks.Hll_inv, z)
 
     # y_corr = Hpl w (pose-packed: gather w by slot landmark, sum the slots)
@@ -231,12 +249,14 @@ def packed_s_matvec(blocks: PackedBlocks, pk: PackedEdges, x, mask, row_chunk: i
                                (blocks.Bp, pk.p_lm), pk.p_lm.shape[0], row_chunk)
     else:
         y_corr = _couple("pkij,pkj->pi", blocks.Bp, _take(w, pk.p_lm, pk.p_plan))
-    y_partial = _odometry_coupling(blocks, pk, xm, NP_) - y_corr
+    y_partial = _odometry_coupling(blocks, pk, xm, NP_, mesh) - y_corr
+    if mesh is not None:
+        y_partial = mesh.psum(y_partial)
     y = torch.einsum("pij,pj->pi", blocks.Hpp_diag, xm) + y_partial
     return y * mask + x * (1.0 - mask)
 
 
-def packed_s_diag(blocks: PackedBlocks, pk: PackedEdges) -> torch.Tensor:
+def packed_s_diag(blocks: PackedBlocks, pk: PackedEdges, mesh=None) -> torch.Tensor:
     """Exact diag(S): Hpp_ii - sum_k B Hll_inv[lm] B^T over the pose slots.
 
     With a windowed plan the Hll_inv blocks are gathered through the kernel
@@ -270,18 +290,26 @@ def packed_s_diag(blocks: PackedBlocks, pk: PackedEdges) -> torch.Tensor:
                 comps[i][m] = torch.sum(BT[:, i, 0] * u0 + BT[:, i, 1] * u1, dim=0)
                 comps[m][i] = comps[i][m]
         corr = torch.stack([torch.stack(r, dim=-1) for r in comps], dim=-2)
+    if mesh is not None:
+        corr = mesh.psum(corr)
     return blocks.Hpp_diag - corr
 
 
-def _chain_band(blocks: PackedBlocks, pk: PackedEdges, NP_: int) -> torch.Tensor:
-    """f32[NP-1, 3, 3] chain band: the chain-prefix couplings, zero past it."""
+def _chain_band(blocks: PackedBlocks, pk: PackedEdges, NP_: int, mesh=None) -> torch.Tensor:
+    """f32[NP-1, 3, 3] chain band: the chain-prefix couplings, zero past it.
+    Under a ``mesh``: the rank's consecutive-pair couplings summed by src
+    and completed by a psum (the same band; other edges are left out)."""
+    if mesh is not None:
+        is_band = (blocks.o_dst == blocks.o_src + 1)[:, None, None].to(blocks.Ho_sd.dtype)
+        return mesh.psum(_segment_sum(blocks.Ho_sd * is_band, blocks.o_src, NP_ - 1))
     nc = pk.chain_len
     band = blocks.Ho_sd.new_zeros((NP_ - 1, 3, 3))
     band[:nc] = blocks.Ho_sd[:nc]
     return band
 
 
-def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverConfig, mask):
+def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverConfig, mask,
+                           mesh=None):
     """The PCG preconditioner of the packed system.
 
     "block_jacobi": exact 3x3 diag(S).  "btridiag" (graphs with an odometry
@@ -308,16 +336,16 @@ def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverCon
         # T may be indefinite: the 0.98 clamp and the per-group fallback
         # guard it (the JAX package's choices)
         q = int(cfg.band_group) or max(1, int(cfg.band_width))
-        diag, band = assemble_sband(blocks, pk, q, mask)
+        diag, band = assemble_sband(blocks, pk, q, mask, mesh=mesh)
         factor = bband_factor(diag, band, q, clamp_band=0.98)
         return lambda r: bband_solve(factor, r)
     if which not in ("block_jacobi", "btridiag", "two_level"):
         raise ValueError(f"unknown preconditioner {cfg.preconditioner!r}")
     eye3 = torch.eye(3, dtype=blocks.Hpp_diag.dtype, device=blocks.Hpp_diag.device)
-    d = mask[..., None] * packed_s_diag(blocks, pk) + (1.0 - mask[..., None]) * eye3
+    d = mask[..., None] * packed_s_diag(blocks, pk, mesh) + (1.0 - mask[..., None]) * eye3
     if which == "block_jacobi" or not has_chain:
         return _inv3x3(d)
-    band = _chain_band(blocks, pk, NP_) * (mask[:-1, :, None] * mask[1:, :, None])
+    band = _chain_band(blocks, pk, NP_, mesh) * (mask[:-1, :, None] * mask[1:, :, None])
     if which == "two_level":
         from boslam_torch.solver.two_level import aggregate_size, two_level_factor, two_level_solve
 
@@ -337,19 +365,21 @@ def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverCon
 
 
 def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, damping,
-                                 x0=None, kt=None):
+                                 x0=None, kt=None, mesh=None):
     """Full linear solve on the packed layout: (dp, dl, stats, ok).
 
     ``x0`` warm-starts CG; ``kt`` overrides the robust threshold (GNC).
     """
-    blocks, stats = build_packed_blocks(g, pk, cfg, damping, kt)
+    blocks, stats = build_packed_blocks(g, pk, cfg, damping, kt, mesh)
     mask = _pose_mask(g.n_poses, g.fixed_pose_ix, g.poses.dtype)
 
     w0 = torch.einsum("lij,lj->li", blocks.Hll_inv, blocks.bl)
     corr = _couple("pkij,pkj->pi", blocks.Bp, _take(w0, pk.p_lm, pk.p_plan))
+    if mesh is not None:
+        corr = mesh.psum(corr)
     rhs = (-blocks.bp + corr) * mask
 
-    precond = _packed_preconditioner(blocks, pk, cfg, mask)
+    precond = _packed_preconditioner(blocks, pk, cfg, mask, mesh)
     if x0 is not None:
         x0 = x0 * mask
     # bf16 blocks put a ~2^-8 noise floor under the matvec: asking CG for
@@ -358,13 +388,15 @@ def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverCon
     if cfg.coupling_dtype == "bfloat16":
         cg_tol = max(cg_tol, BF16_CG_TOL_FLOOR)
     dp, n_iters, rel_res2, breakdown, info = pcg(
-        lambda x: packed_s_matvec(blocks, pk, x, mask, row_chunk=cfg.matvec_row_chunk),
-        rhs, precond, cfg.cg_iters, cg_tol, x0, restarts=cfg.cg_restarts,
+        lambda x: packed_s_matvec(blocks, pk, x, mask, row_chunk=cfg.matvec_row_chunk, mesh=mesh),
+        rhs, precond, cfg.cg_iters, cg_tol, x0, restarts=cfg.cg_restarts, mesh=mesh,
     )
     dp = dp * mask
 
     hlp_dp = _couple("lkij,lki->lj", blocks.Bl, _take(dp, pk.l_pose, pk.l_plan))
     hlp_dp = _lm_rows_sum(hlp_dp, pk, blocks.Hll_inv.shape[0])
+    if mesh is not None:
+        hlp_dp = mesh.psum(hlp_dp)
     dl = torch.einsum("lij,lj->li", blocks.Hll_inv, -blocks.bl - hlp_dp)
 
     dp, dl, ok = _nan_guard(dp, dl)
@@ -373,8 +405,9 @@ def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverCon
     return dp, dl, stats, ok
 
 
-def packed_robust_total(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, kt=None):
-    """Total robust cost on the packed layout (no Jacobians): the LM test."""
+def packed_robust_total(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, kt=None, mesh=None):
+    """Total robust cost on the packed layout (no Jacobians): the LM test;
+    a psum of the ranks' partials under a ``mesh``."""
     NP_ = g.n_poses
     p_slot = g.poses[:, None, :].expand(NP_, pk.K, 3)
     l_slot = _take(g.landmarks, pk.p_lm, pk.p_plan)
@@ -382,8 +415,9 @@ def packed_robust_total(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, kt=N
     bchi2 = pk.p_omega * err * err
     oe = R.odometry_error_from(g.poses[g.o_src], g.poses[g.o_dst], g.o_meas)
     ochi2 = torch.einsum("ei,eij,ej->e", oe, g.o_omega, oe)
-    return (torch.sum(robust_cost(bchi2, cfg, kt) * (pk.p_omega > 0))
-            + torch.sum(robust_cost(ochi2, cfg, kt) * (ochi2 > 0)))
+    total = (torch.sum(robust_cost(bchi2, cfg, kt) * (pk.p_omega > 0))
+             + torch.sum(robust_cost(ochi2, cfg, kt) * (ochi2 > 0)))
+    return total if mesh is None else mesh.psum(total)
 
 
 def _step_stats(stats, ok, accepted, damping, kt, cfg, dp, dl, dev) -> dict:
@@ -398,7 +432,7 @@ def _step_stats(stats, ok, accepted, damping, kt, cfg, dp, dl, dev) -> dict:
 
 
 def packed_lm_step(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, lam, dp_prev=None,
-                   kt=None):
+                   kt=None, mesh=None):
     """One LM trial on the packed layout: (g', lam', stats, dp).
 
     Accept the candidate iff the robust cost decreases and the solve stayed
@@ -406,9 +440,9 @@ def packed_lm_step(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, lam, dp_p
     ``dp`` warm-starts the next trial only when this one was accepted.
     """
     x0 = dp_prev if cfg.cg_warm_start else None
-    dp, dl, stats, ok = schur_packed_build_and_solve(g, pk, cfg, lam, x0, kt)
+    dp, dl, stats, ok = schur_packed_build_and_solve(g, pk, cfg, lam, x0, kt, mesh)
     cand = g.with_state(*boxplus_state(g.poses, g.landmarks, dp, dl))
-    cost_new = packed_robust_total(cand, pk, cfg, kt)
+    cost_new = packed_robust_total(cand, pk, cfg, kt, mesh)
     accept = (cost_new < stats["chi2_robust"]) & ok
     poses = torch.where(accept, cand.poses, g.poses)
     landmarks = torch.where(accept, cand.landmarks, g.landmarks)
@@ -419,11 +453,12 @@ def packed_lm_step(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, lam, dp_p
     return g.with_state(poses, landmarks), new_lam, stats, dp_next
 
 
-def packed_gn_step(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, dp_prev=None, kt=None):
+def packed_gn_step(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, dp_prev=None, kt=None,
+                   mesh=None):
     """One GN iteration on the packed layout: (g', stats, dp).  With
     ``cfg.cg_warm_start`` CG starts from ``dp_prev``."""
     x0 = dp_prev if cfg.cg_warm_start else None
-    dp, dl, stats, ok = schur_packed_build_and_solve(g, pk, cfg, cfg.damping, x0, kt)
+    dp, dl, stats, ok = schur_packed_build_and_solve(g, pk, cfg, cfg.damping, x0, kt, mesh)
     poses, landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
     dev = g.device
     stats = _step_stats(stats, ok, torch.ones((), dtype=torch.bool, device=dev),

@@ -12,7 +12,7 @@ rounds; the gather as CUDA-graph replays) and counts its launches per
 call, then drives the port's paths at the reference dataset's size:
 GN under the exact Schur solve with the whole-step kernel off (gn-schur)
 for 50 iterations, GN under the dense solve for 50, LM under the Schur
-solve for 10, and the main path, GN under the exact Schur solve with the
+solve for 50, and the main path, GN under the exact Schur solve with the
 default fused_step="auto", which takes the whole-step kernel (gn-fused),
 for 50 on a chain graph and 50 on a graph with four loop closures.  Each
 path is checked against the port's own CPU run of the same graph.  The
@@ -50,6 +50,23 @@ corridor's g2o; a resumed gn-fused run (5, save_npz, load_npz, 5) against
 10 straight, to the bit; and ``python -m boslam_torch bench`` and
 ``python -m boslam_torch solve --profile`` as subprocesses (the trace must
 name the whole step's kernels).  Nothing imports matplotlib.
+
+Last, the multi-device layouts at world size 1 under NCCL: edge-sharded
+gn-dense 50, gn-schur 50 and lm-schur 50 at 301/141 (the Cholesky kernel
+on the rank, 50 launches each; the Schur, whole-step and gather kernels
+none), their converged chi2 held to the card's single-device runs and the
+CPU's; edge-sharded packed GN 10 (btridiag) and LM 5 (warm start) on the
+10k corridor, held to solve_packed(gather="take") on the card; pose-range
+GN 5 on the 100k corridor and LM 3 under two_level at
+POSE_RANGE_r05.json's configuration, held at iteration 0 to the port's CPU
+pose-range run (gloo), and against the single-device packed path on the
+card over its first step and the pieces of its first build (blocks, S
+matvec, diag(S), chain band, preconditioner); each with ms per outer,
+per-rank shard bytes, peak memory, collective bytes per CG matvec and, for
+one run of each sharded scale layout, a profile of the solve loop apart
+from the preparation; the host's cost of one collective call; and
+``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+boslam_torch solve ... --pose-range`` as a subprocess.
 
 Prints the card, the build, one line per check, then a JSON line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  Any failed
@@ -115,6 +132,35 @@ TWO_LEVEL_HELD = {"additive": 10, "vcycle": 9}
 # blocks on either, the two CPU runs part by 1.1e-2 to 3.5e-2 from the
 # second iteration on, so only iteration 0 is held there.
 BBAND_HELD = 9
+# Multi-device phase, world size 1 under NCCL on the card (PERF.md section 4)
+# pose-range at POSE_RANGE_r05.json's configuration: generate_sequence(20000,
+# 8000, seed=0, loop_closures=50) (7732 landmarks after triangulation), LM 3
+# under two_level, cg_iters 60, cg_tol 1e-7, warm start; its JAX record
+POSE_RANGE_R05 = (20000, 8000, 0, 50)
+POSE_RANGE_R05_JAX_CHI2 = 26778.3671875
+# pose-range at world size 1 against the single-device packed path on the
+# card (chip_smoke.range_pieces; PERF.md section 6; on the CPU
+# tools/port_packed_scan.py --what pose_range).  The damped blocks, one S
+# matvec and the chain band agree to f32 rounding (blocks to the bit or
+# 2.4e-9, the rest within 6e-8, card and CPU)
+RANGE_PIECE_RTOL = 1e-6
+RANGE_EXACT = ("Hpp_diag", "bp", "Hll_inv", "bl", "Bp", "Bl", "matvec", "chain_band")
+# diag(S) and the block-Jacobi apply cancel in f32 (1.1e-2 and 3.3e-2 from
+# f64 on the packed path at 100k): pose-range's gap to f64 within this
+# factor of the packed path's (0.44-0.82 on the card, up to 1.7 on the CPU);
+# and the first CG solve's residual, measured by the packed matvec at its
+# delta, within this factor of what CG reports (2.1 at 100k, where CG breaks
+# down, 1.00 at 20k on the card)
+RANGE_RATIO = 4.0
+# two_level's apply against the packed path's and, where CG does not break
+# down, the chi2 after the first step against the take run: twice the
+# largest gap of the card probe and the CPU scan (apply 1.4e-2 on the
+# card, 4.0e-3 on the CPU; first step 3.6e-4 on the card, 1.2e-3 on the
+# CPU on this graph).  At 100k, where the first outer's CG breaks down,
+# two orders of the same sums part by 11% at iteration 1 (the scan), so
+# no bound holds there
+RANGE_TWO_LEVEL_APPLY = 2.8e-2
+RANGE_FIRST_STEP = 2.4e-3
 DEV = "cuda"
 
 
@@ -606,12 +652,16 @@ def _band_route(band, label):
 def profile_path(torch, solve, g, cfg, iters=5, top=8):
     """Device time by kernel over ``iters`` warm iterations of one path, and
     the device's busy share of the window (one stream, so kernels do not
-    overlap and their sum is the busy time)."""
+    overlap and their sum is the busy time); beside it the wall time of the
+    warm-up run, outside the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = cfg.replace(iters=iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     solve(g, cfg)
     torch.cuda.synchronize()
+    warm_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         solve(g, cfg)
@@ -626,6 +676,7 @@ def profile_path(torch, solve, g, cfg, iters=5, top=8):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return dict(
         iters=iters, wall_ms_per_iter=wall_us / iters / 1e3,
+        wall_ms_per_iter_unprofiled=warm_us / iters / 1e3,
         device_busy_ms_per_iter=busy_us / iters / 1e3, device_busy_share=busy_us / wall_us,
         device_ops_per_iter=n_kernels / iters,
         top=[[name[:60], round(us / iters / 1e3, 4)] for name, us in ranked],
@@ -1270,6 +1321,345 @@ def run_bench_phase(torch, generate_sequence, chi2_fused):
           + lines[-1])
 
 
+def _graph_bytes(g):
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(g, f.name) for f in dataclasses.fields(g)))
+
+
+def _matvec_bytes(mesh, fn):
+    """Collective bytes of one CG matvec (``fn``), by kind."""
+    mesh.reset_counts()
+    fn()
+    return {k: v for k, v in mesh.bytes.items() if v}
+
+
+def range_pieces(torch, g, cfg, mesh):
+    """Pose-range's pieces on ``mesh`` (one rank) beside the single-device
+    packed path's (plain gathers, no hot-landmark rows) at ``g``'s state
+    and ``cfg``'s first damping, as norm-relative gaps.
+
+    Against the packed path: the damped blocks, one S matvec on a random
+    vector, the chain band and the preconditioner's apply.  diag(S) and
+    the block-Jacobi apply cancel (Hpp - B Hll^-1 B^T nears zero on a pose
+    whose landmarks it alone observes), so both paths' are also taken
+    against an f64 evaluation from the same f32 blocks (``*_f64``, the
+    packed path's beside it).  The first CG solve: its relative residual
+    squared as CG reports it and as the packed path's matvec measures it
+    at its delta, for both paths.  Runs on ``g``'s device;
+    ``tools/port_packed_scan.py --what pose_range`` runs it on the CPU."""
+    from boslam_torch.graph.packed import pack_edges
+    from boslam_torch.parallel.pose_range import (
+        _local_mask, _range_build, _range_matvec, _range_s_diag, _range_two_level,
+        prepare_pose_range, range_build_and_solve)
+    from boslam_torch.solver import schur, schur_packed as sp
+
+    def gap(a, b):
+        return float(torch.linalg.norm((a.double() - b.double()))
+                     / torch.linalg.norm(b.double()))
+
+    def apply(precond, r):
+        return precond(r) if callable(precond) else torch.einsum("pij,pj->pi", precond, r)
+
+    damping = cfg.damping if cfg.optimizer == "gn" else cfg.lm_lambda0
+    sh, meta = prepare_pose_range(g, mesh)
+    pk, _ = pack_edges(g, split_lm=0)
+    br, _ = _range_build(sh, cfg, damping, meta, mesh)
+    bp, _ = sp.build_packed_blocks(g, pk, cfg, damping)
+    gaps = {f: gap(getattr(br, f), getattr(bp, f))
+            for f in ("Hpp_diag", "bp", "Hll_inv", "bl", "Bp", "Bl")}
+    NP_ = g.n_poses
+    mask_r = _local_mask(sh, meta, mesh)
+    mask = schur._pose_mask(NP_, g.fixed_pose_ix, g.poses.dtype)
+
+    def matvec(x):
+        return sp.packed_s_matvec(bp, pk, x, mask)
+
+    gen = torch.Generator(device=g.device).manual_seed(0)
+    x = torch.randn((NP_, 3), generator=gen, device=g.device)
+    gaps["matvec"] = gap(_range_matvec(br, sh, x, mask_r, meta, mesh), matvec(x))
+    gaps["chain_band"] = gap(br.Ho[1:NP_], sp._chain_band(bp, pk, NP_))
+    B64 = bp.Bp.double()
+    s64 = bp.Hpp_diag.double() - torch.einsum("pkij,pkjl,pkml->pim", B64,
+                                              bp.Hll_inv.double()[pk.p_lm], B64)
+    d_r = _range_s_diag(br, sh, mesh)
+    gaps["s_diag"] = gap(d_r, sp.packed_s_diag(bp, pk))
+    gaps["s_diag_f64"] = gap(d_r, s64)
+    gaps["s_diag_packed_f64"] = gap(sp.packed_s_diag(bp, pk), s64)
+    eye3 = torch.eye(3, dtype=d_r.dtype, device=d_r.device)
+    d = mask_r[..., None] * d_r + (1.0 - mask_r[..., None]) * eye3
+    precond = (_range_two_level(br, sh, d, mask_r, meta, mesh, cfg)
+               if cfg.preconditioner == "two_level" else schur._inv3x3(d))
+    precond_p = sp._packed_preconditioner(bp, pk, cfg, mask)
+    gaps["precond_apply"] = gap(apply(precond, x * mask_r), apply(precond_p, x * mask))
+    if cfg.preconditioner != "two_level":
+        d64 = mask.double()[..., None] * s64 + (1.0 - mask.double()[..., None]) * eye3.double()
+        y64 = torch.linalg.solve(d64, (x * mask).double())
+        gaps["precond_apply_f64"] = gap(apply(precond, x * mask_r), y64)
+        gaps["precond_apply_packed_f64"] = gap(apply(precond_p, x * mask), y64)
+    # the first CG solve of each path, its residual measured by one matvec
+    w0 = torch.einsum("lij,lj->li", bp.Hll_inv, bp.bl)
+    rhs = (-bp.bp + torch.einsum("pkij,pkj->pi", bp.Bp, w0[pk.p_lm])) * mask
+    for name, (dp, _, st, _) in (
+            ("range", range_build_and_solve(sh, cfg, damping, meta, mesh)),
+            ("packed", sp.schur_packed_build_and_solve(g, pk, cfg, damping))):
+        r = rhs - matvec(dp)
+        gaps[f"cg_rel_res2_{name}"] = float(st["cg_rel_res2"])
+        gaps[f"true_rel_res2_{name}"] = float(torch.sum(r.double() ** 2)
+                                              / torch.sum(rhs.double() ** 2))
+    return gaps
+
+
+def _range_failures(pieces, rel_t, cfg):
+    """The names of ``range_pieces``' gaps (and "first_step", the chi2
+    after it against the take run) outside their bounds."""
+    failed = [k for k in RANGE_EXACT if not pieces[k] < RANGE_PIECE_RTOL]
+    pairs = [("s_diag_f64", "s_diag_packed_f64"), ("true_rel_res2_range", "cg_rel_res2_range")]
+    if cfg.preconditioner == "two_level":
+        failed += [k for k, v, bound in (("precond_apply", pieces["precond_apply"],
+                                          RANGE_TWO_LEVEL_APPLY),
+                                         ("first_step", rel_t[1], RANGE_FIRST_STEP))
+                   if not v < bound]
+    else:
+        pairs.append(("precond_apply_f64", "precond_apply_packed_f64"))
+    return failed + [a for a, b in pairs
+                     if not pieces[a] <= RANGE_RATIO * pieces[b] + RANGE_PIECE_RTOL]
+
+
+def _collective_ms(torch, mesh, reps=200):
+    """Host ms per call of each collective at world size 1, by CUDA-synced
+    wall clock over ``reps`` calls: psum of 1 float (a CG dot) and of the
+    packed 10k matvec's 37730, pmax of a flag (the CG poll), all_gather of
+    pose-range's 100k matvec vector (300000 floats), psum_scatter of the
+    20k closures' 240000 bytes.  Returns (the readings, ms by kind: the
+    larger psum reading)."""
+    calls = {"psum 1": (mesh.psum, 1), "psum 37730": (mesh.psum, 37730),
+             "pmax 1": (mesh.pmax, 1), "all_gather 300000": (mesh.all_gather, 300000),
+             "psum_scatter 60000": (mesh.psum_scatter, 60000)}
+    out = {}
+    for name, (fn, n) in calls.items():
+        x = torch.zeros(n, device=mesh.device)
+        fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(x)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    by_kind = {"psum": max(out["psum 1"], out["psum 37730"]), "pmax": out["pmax 1"],
+               "all_gather": out["all_gather 300000"],
+               "psum_scatter": out["psum_scatter 60000"]}
+    return out, by_kind
+
+
+def _mesh_run(torch, solve, g, cfg, counters, mesh, label, want, per_call_ms=None):
+    """One multi-device run on the card with every count at 0: its launches
+    against ``want`` (every other kernel 0), its collectives' bytes, ms per
+    outer iteration and peak memory; with ``per_call_ms`` (host ms per call
+    by kind) the collectives' estimated share of the wall time."""
+    mesh.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
+    peak = torch.cuda.max_memory_allocated()
+    expected = _want(counts, **want)
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts}, expected {expected}")
+    if not np.isfinite(st["chi2_robust"]).all():
+        raise AssertionError(f"{label}: chi2 {st['chi2_robust'].tolist()}")
+    run = dict(launches=counts, ms_per_outer=secs / cfg.iters * 1e3, peak_mb=peak / 2**20,
+               collective_bytes=dict(mesh.bytes), collective_calls=dict(mesh.calls))
+    if per_call_ms is not None:  # the calls' host time at their measured cost
+        est = sum(n * per_call_ms[k] for k, n in mesh.calls.items())
+        run.update(collective_host_ms_estimate=est, collective_share_of_wall=est / (secs * 1e3))
+    return g2, st, run
+
+
+def run_multi_device_phase(torch, counters, g, g_cpu, single, generate_sequence, build_graph,
+                           SolverConfig):
+    """Slice 8: the three multi-device layouts at world size 1 under NCCL.
+    ``single`` maps "gn-dense", "gn-schur", "lm-schur" to (the card's
+    single-device stats, the CPU's stats, cfg).  Returns the Cholesky
+    kernel's launches on the sharded runs."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from boslam_torch.graph.packed import pack_edges
+    from boslam_torch.io.g2o import write_g2o
+    from boslam_torch.parallel.mesh import make_mesh
+    from boslam_torch.parallel.pose_range import (
+        _local_mask, _range_build, _range_matvec, make_pose_range_solve, pose_range_solve,
+        prepare_pose_range)
+    from boslam_torch.parallel.sharded import shard_graph, sharded_solve
+    from boslam_torch.parallel.sharded_packed import (
+        make_sharded_packed_solve, shard_packed, sharded_packed_solve)
+    from boslam_torch.solver import schur, schur_packed as sp
+    from boslam_torch.solver.optimizer import solve_packed
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(DEV)  # NCCL; its communicator is set up here, before any solve
+    if (mesh.backend, mesh.size) != ("nccl", 1):
+        raise AssertionError(f"mesh: {mesh.backend} over {mesh.size} rank(s)")
+    chol_launches = {}
+    # what one collective call costs the host at one rank, at the layouts' sizes
+    readings, per_call = _collective_ms(torch, mesh)
+    print("collective host ms per call: " + json.dumps(readings))
+
+    # ---- edge-sharded flat at 301/141: the Cholesky kernel on every rank ----
+    gs = shard_graph(g, mesh)
+    for label, (st1, st_cpu, cfg) in single.items():
+        name = f"sharded {label}"
+        _, st, run = _mesh_run(torch, lambda gg, c: sharded_solve(gg, c, mesh), g, cfg, counters,
+                               mesh, name, {"cholesky": cfg.iters}, per_call)
+        chol_launches[name] = run["launches"]["cholesky"]
+        c = st["chi2_robust"]
+        rel1 = _rel_trace(c, st1["chi2_robust"])
+        relc = _rel_trace(c, st_cpu["chi2_robust"])
+        # converged: GN and LM run 50 (LM's chi2 after 10 trials moves by
+        # up to 2.6e-4 between runs on the card, and the CPU's LM rejects
+        # trials the card accepts, 2.59 against 0.306 there: PERF.md)
+        if not (rel1[-1] < 1e-4 and relc[-1] < 1e-4 and st["spd_ok"].all() and c[-1] < c[0]):
+            raise AssertionError(f"{name}: chi2 {c.tolist()}, single device "
+                                 f"{st1['chi2_robust'].tolist()}, CPU {st_cpu['chi2_robust'].tolist()}")
+        print(f"{name}: " + json.dumps(dict(
+            chi2_first=float(c[0]), chi2_last=float(c[-1]),
+            chi2_last_single_device=float(st1["chi2_robust"][-1]),
+            chi2_last_cpu=float(st_cpu["chi2_robust"][-1]), rel_last_vs_single=float(rel1[-1]),
+            rel_last_vs_cpu=float(relc[-1]), accepted=int(st["accepted"].sum()),
+            shard_bytes_per_rank=_graph_bytes(gs),
+            collective_bytes_per_outer={k: v / cfg.iters for k, v in run["collective_bytes"].items()
+                                        if v}, **run)))
+    print(f"phase sharded flat 301/141: {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- edge-sharded packed on the 10k corridor, plain gathers ----
+    t0 = time.perf_counter()
+    g10_cpu, _, _ = _corridor(generate_sequence, build_graph, *MID)
+    g10 = g10_cpu.to(DEV)
+    pk10, _ = pack_edges(g10_cpu)
+    gs10, pks10 = shard_packed(g10_cpu, pk10, mesh)
+    for label, cfg, held in (
+            ("GN 10 btridiag", SolverConfig(linear_solver="schur_cg", iters=10,
+                                            preconditioner="btridiag"), 10),
+            ("LM 5 warm start", SolverConfig(linear_solver="schur_cg", iters=5, optimizer="lm",
+                                             cg_warm_start=True), 2)):
+        name = f"sharded packed 10k {label}"
+        _, st1, counts1, secs1 = _run_path(torch, solve_packed, g10, cfg.replace(gather="take"),
+                                           counters)
+        _, st, run = _mesh_run(torch, lambda gg, c: sharded_packed_solve(gg, c, mesh), g10, cfg,
+                               counters, mesh, name, {}, per_call)
+        rel = _hold_trace(st["chi2_robust"], st1["chi2_robust"], held, name, "take run")
+        bl, _ = sp.build_packed_blocks(gs10, pks10, cfg, cfg.damping, mesh=mesh)
+        mask = schur._pose_mask(g10.n_poses, g10.fixed_pose_ix, torch.float32)
+        per_mv = _matvec_bytes(mesh, lambda: sp.packed_s_matvec(
+            bl, pks10, torch.ones((g10.n_poses, 3), device=DEV), mask, mesh=mesh))
+        shard = _graph_bytes(gs10) + sum(getattr(pks10, f).numel() * 4 for f in (
+            "p_lm", "p_meas", "p_omega", "l_pose", "l_meas", "l_omega"))
+        if cfg.optimizer == "gn":  # the loop's time by kernel, apart from the preparation
+            run["profile"] = profile_path(
+                torch, lambda gg, c: make_sharded_packed_solve(mesh, c)(gs10, pks10), g10, cfg,
+                iters=2)
+        print(f"{name}: " + json.dumps(dict(
+            held_iterations=held, rel_vs_take=rel.tolist(), chi2=st["chi2_robust"].tolist(),
+            chi2_take=st1["chi2_robust"].tolist(), ms_per_outer_take=secs1 / cfg.iters * 1e3,
+            cg_iters=st["cg_iters"].tolist(), breakdowns=int(st["cg_breakdown"].sum()),
+            accepted=int(st["accepted"].sum()), shard_bytes_per_rank=shard,
+            collective_bytes_per_cg_matvec=per_mv, **run)))
+    del gs10, pks10
+    print(f"phase sharded packed 10k: {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- pose-range: the 100k corridor, and POSE_RANGE_r05.json's configuration ----
+    t0 = time.perf_counter()
+    mesh_cpu = make_mesh("cpu")  # gloo, for the CPU reference
+    g100_cpu, _, _ = _corridor(generate_sequence, build_graph, *BIG)
+    n, nl, seed, lc = POSE_RANGE_R05
+    ig20, _ = generate_sequence(n, nl, seed=seed, loop_closures=lc)
+    g20_cpu, _ = build_graph(ig20, init="triangulate", device="cpu")
+    for label, g_cpu_r, cfg, ref_chi2 in (
+            ("100k corridor GN 5 block-Jacobi", g100_cpu,
+             SolverConfig(linear_solver="schur_cg", iters=5, preconditioner="block_jacobi",
+                          lm_split=0), None),
+            (f"{n // 1000}k, {lc} closures, LM 3 two_level (POSE_RANGE_r05)", g20_cpu,
+             SolverConfig(linear_solver="schur_cg", iters=3, optimizer="lm", cg_tol=1e-7,
+                          cg_iters=60, lm_split=0, cg_warm_start=True,
+                          preconditioner="two_level"), POSE_RANGE_R05_JAX_CHI2)):
+        name = f"pose-range {label}"
+        gd = g_cpu_r.to(DEV)
+        _, st, run = _mesh_run(torch, lambda gg, c: pose_range_solve(gg, c, mesh), gd, cfg,
+                               counters, mesh, name, {}, per_call)
+        c = st["chi2_robust"]
+        # the single-device packed path on the same system (plain gathers, no
+        # hot-landmark rows): the first step, and the pieces of the first build
+        _, st_t, _, secs_t = _run_path(torch, solve_packed, gd, cfg.replace(gather="take"),
+                                       counters)
+        rel_t = _rel_trace(c, st_t["chi2_robust"])
+        pieces = range_pieces(torch, gd, cfg, mesh)
+        # iteration 0 against the port's CPU pose-range run (its chi2 before the first step)
+        c_cpu = pose_range_solve(g_cpu_r, cfg.replace(iters=1, cg_iters=1), mesh_cpu)[1]
+        rel0 = _rel_trace(c[:1], c_cpu["chi2_robust"].numpy()[:1])
+        failed = _range_failures(pieces, rel_t, cfg)
+        if failed or not (rel0[0] < 1e-5 and rel_t[0] < 1e-5 and c[-1] < c[0]
+                          and st["spd_ok"].all()):
+            raise AssertionError(f"{name}: failed {failed}, chi2 {c.tolist()}, take run "
+                                 f"{st_t['chi2_robust'].tolist()}, CPU iteration 0 "
+                                 f"{float(c_cpu['chi2_robust'][0])}, pieces {pieces}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sh, meta = prepare_pose_range(gd, mesh)  # the once-per-solve preparation
+        torch.cuda.synchronize()
+        prep_ms = (time.perf_counter() - t1) * 1e3
+        bl, _ = _range_build(sh, cfg, cfg.damping, meta, mesh)
+        per_mv = _matvec_bytes(mesh, lambda: _range_matvec(
+            bl, sh, torch.ones_like(sh.poses), _local_mask(sh, meta, mesh), meta, mesh))
+        rec = dict(graph=[gd.n_poses, gd.n_landmarks, gd.n_bearing, gd.n_odometry],
+                   rel_iteration0_vs_cpu=float(rel0[0]), rel_vs_take=rel_t.tolist(),
+                   pieces=pieces, first_step_held=cfg.preconditioner == "two_level",
+                   chi2=c.tolist(), chi2_take=st_t["chi2_robust"].tolist(),
+                   cg_iters=st["cg_iters"].tolist(), cg_iters_take=st_t["cg_iters"].tolist(),
+                   breakdown=st["cg_breakdown"].astype(int).tolist(),
+                   breakdown_take=st_t["cg_breakdown"].astype(int).tolist(),
+                   accepted=int(st["accepted"].sum()), ms_per_outer_take=secs_t / cfg.iters * 1e3,
+                   prepare_ms=prep_ms, shard_bytes_per_rank=sh.nbytes(),
+                   collective_bytes_per_cg_matvec=per_mv,
+                   collective_bytes_per_cg_matvec_formula=12 * meta.np_pad + 8 * meta.nl_pad,
+                   **run)
+        if ref_chi2 is not None:
+            rec["jax_record_chi2_final_not_a_check"] = ref_chi2
+        else:  # the loop's time by kernel, apart from the preparation
+            dp0 = torch.zeros_like(sh.poses)
+            rec["profile"] = profile_path(
+                torch, lambda gg, c: make_pose_range_solve(mesh, c, meta)(sh, dp0)[:2], gd, cfg,
+                iters=2)
+        print(f"{name}: " + json.dumps(rec))
+        del sh, bl, gd
+    print(f"phase pose-range: {time.perf_counter() - t0:.1f} s wall")
+    dist.destroy_process_group()
+
+    # ---- the CLI under torchrun, one rank on the card ----
+    t0 = time.perf_counter()
+    ig, _ = generate_sequence(301, 141, seed=SEED)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/ref_size.g2o"
+        write_g2o(path, ig.pose_ids, ig.pose_xyt, ig.lm_ids, ig.lm_xy, parsed=ig,
+                  fixed_pose_id=ig.fixed_pose_id)
+        root = os.path.dirname(os.path.abspath(__file__))
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             "1", "-m", "boslam_torch", "solve", path, "--pose-range", "--linear-solver",
+             "schur_cg", "--iters", "5", "--cg-tol", "1e-7"],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True, text=True,
+            timeout=300)
+    if out.returncode != 0 or "1 rank(s), nccl" not in out.stderr:
+        raise AssertionError(f"torchrun solve --pose-range: exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    rows = [ln.split() for ln in out.stdout.splitlines() if ln[:4].strip().isdigit()]
+    chi2 = [float(r[1]) for r in rows]
+    if not (len(chi2) == 5 and np.isfinite(chi2).all() and chi2[-1] < chi2[0]):
+        raise AssertionError(f"torchrun solve --pose-range: {out.stdout!r}")
+    print(f"torchrun solve --pose-range ({time.perf_counter() - t0:.1f} s wall): "
+          + json.dumps(dict(chi2=chi2, ranks=1, backend="nccl")))
+    return chol_launches
+
+
 def main() -> int:
     import torch
 
@@ -1425,15 +1815,15 @@ def main() -> int:
         rel_vs_cpu=float(rel_d), ms_per_iter_first_run=secs_d / ITERS * 1e3)))
 
     # ---- LM under the Schur solve ----
-    cfg_lm = cfg_s.replace(optimizer="lm", iters=10)
+    cfg_lm = cfg_s.replace(optimizer="lm")
     _, st_l, counts_l, secs_l = _run_path(torch, solve, g, cfg_lm, counters)
     cl = st_l["chi2_robust"]
-    if counts_l["schur"] != 10 or counts_l["schur_band"] != 10 or not np.isfinite(cl).all():
+    if counts_l["schur"] != ITERS or counts_l["schur_band"] != ITERS or not np.isfinite(cl).all():
         raise AssertionError(f"LM-schur: launches {counts_l}, chi2 {cl}")
     print("lm-schur: " + json.dumps(dict(
         launches=counts_l, route="band", band_tiles=band_main, chi2_first=float(cl[0]),
         chi2_last=float(cl[-1]),
-        accepted=int(st_l["accepted"].sum()), ms_per_iter_first_run=secs_l / 10 * 1e3)))
+        accepted=int(st_l["accepted"].sum()), ms_per_iter_first_run=secs_l / ITERS * 1e3)))
 
     other = run_autodiff_backend_phase(torch, solve, g, counters, {"gn-schur": c, "gn-dense": cd})
 
@@ -1465,6 +1855,14 @@ def main() -> int:
     run_resume_phase(torch, solve, g, cfg_f, counters, meta)
     print(f"phase resume: {time.perf_counter() - t0:.1f} s wall")
     run_bench_phase(torch, generate_sequence, float(c[-1]))
+    t0 = time.perf_counter()
+    st_cpu_l = _stats(solve(g_cpu, cfg_lm)[1])
+    sharded_chol = run_multi_device_phase(
+        torch, counters, g, g_cpu,
+        {"gn-dense": (st_d, st_cpu_d, cfg_d), "gn-schur": (st, st_cpu, cfg_s),
+         "lm-schur": (st_l, st_cpu_l, cfg_lm)},
+        generate_sequence, build_graph, SolverConfig)
+    print(f"phase multi-device: {time.perf_counter() - t0:.1f} s wall")
 
     kernels = [
         dict(name="cholesky_solve_padded", route="cuda",
@@ -1475,7 +1873,8 @@ def main() -> int:
              bound_by=chol_main["bound_by"], library_ms=chol_main["library_ms"],
              launches_per_call=chol_main["launches_per_call"], shape=chol_main["shape"],
              path="gn-dense",
-             launches_other_paths={k: v["cholesky"] for k, v in other.items() if v["cholesky"]}),
+             launches_other_paths={**{k: v["cholesky"] for k, v in other.items() if v["cholesky"]},
+                                   **sharded_chol}),
         dict(name="fused_schur_solve_blocks", route="cuda",
              source="boslam_torch/ops/csrc/schur_solve.cu",
              replaces="boslam/ops/pallas_schur.py:133", launches=schur_launches,

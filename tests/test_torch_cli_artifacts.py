@@ -1,8 +1,9 @@
-"""The port's CLI artifacts and flags of the single-device remainder, on the
-CPU: ``--render`` (both PNGs), ``--print-state`` (the JAX package's line on
-the same state), ``--profile`` (a Chrome trace), ``--interactive``
-(refused on a headless backend, with the JAX CLI's message), and the
-solver flags reaching ``SolverConfig`` as the JAX CLI's do."""
+"""The port's CLI artifacts and flags, on the CPU: ``--render`` (both
+PNGs), ``--print-state`` (the JAX package's line on the same state),
+``--profile`` (a Chrome trace), ``--interactive`` (refused on a headless
+backend, with the JAX CLI's message), and the solver flags, the
+multi-device ones included, reaching ``SolverConfig`` and the solve as
+the JAX CLI's do."""
 
 import argparse
 import dataclasses
@@ -17,7 +18,7 @@ import boslam.cli as cli_jax
 from boslam_torch.cli import main
 
 PORT_ONLY = {"--device"}
-JAX_ONLY = {"--sharded", "--pose-range", "--platform"}  # multi-device: later; --device here
+JAX_ONLY = {"--platform"}  # the port's is --device
 
 
 @pytest.fixture(scope="module")
@@ -46,8 +47,9 @@ def _flags(module_main):
 
 
 def test_every_jax_flag_but_multi_device():
-    """`solve --help` and `bench --help` list every JAX CLI flag except
-    --sharded, --pose-range and --platform (the port's is --device)."""
+    """`solve --help` and `bench --help` list every JAX CLI flag, the
+    multi-device --sharded and --pose-range included, except --platform
+    (the port's is --device)."""
     port, jax_ = _flags(main), _flags(cli_jax.main)
     for sub in ("solve", "bench"):
         assert port[sub] - PORT_ONLY == jax_[sub] - JAX_ONLY, sub
@@ -78,6 +80,41 @@ def test_new_flags_reach_solver_config(dataset, monkeypatch):
         assert getattr(cfg, f.name) == getattr(cfg_j, f.name), f.name
     assert (cfg.band_width, cfg.band_group, cfg.coupling_dtype, cfg.use_autodiff_jacobians) == (
         5, 6, "bfloat16", True)
+
+
+@pytest.mark.parametrize("flags, module, fn", [
+    (["--sharded"], "sharded", "sharded_solve"),
+    (["--sharded", "--packed"], "sharded_packed", "sharded_packed_solve"),
+    (["--pose-range"], "pose_range", "pose_range_solve"),
+])
+def test_multi_device_flags_reach_solver_config(dataset, monkeypatch, flags, module, fn):
+    """--sharded (with and without --packed) and --pose-range take the JAX
+    CLI's layout, on a one-rank gloo group, with the JAX CLI's
+    SolverConfig for the same command line."""
+    import importlib
+
+    mod = importlib.import_module(f"boslam_torch.parallel.{module}")
+    seen = {}
+    real = getattr(mod, fn)
+
+    def recording(g, cfg, mesh, **kw):
+        seen.update(cfg=cfg, size=mesh.size, backend=mesh.backend)
+        return real(g, cfg, mesh, **kw)
+
+    monkeypatch.setattr(mod, fn, recording)
+    argv = [*flags, "--linear-solver", "schur_cg", "--optimizer", "lm", "--iters", "2",
+            "--cg-iters", "20"]
+    assert main(["solve", dataset, "--device", "cpu", *argv]) == 0
+    jax_args = {}
+    monkeypatch.setattr(cli_jax, "cmd_solve", lambda a: jax_args.setdefault("a", a) and 0)
+    cli_jax.main(["solve", dataset, *argv])
+    a = jax_args["a"]
+    assert (a.sharded, a.packed, a.pose_range) == ("--sharded" in flags, "--packed" in flags,
+                                                   "--pose-range" in flags)
+    cfg, cfg_j = seen["cfg"], cli_jax._cfg_from_args(a)
+    for f in dataclasses.fields(cfg_j):
+        assert getattr(cfg, f.name) == getattr(cfg_j, f.name), f.name
+    assert (seen["size"], seen["backend"]) == (1, "gloo")
 
 
 def test_render_writes_both_pngs(dataset, tmp_path):

@@ -534,3 +534,46 @@ def test_autodiff_jacobians_on_the_card(cuda):
         a, b = getattr(t_ad, name), getattr(t, name)
         assert a.dtype == torch.float32 and a.is_cuda
         assert ((a - b).abs().max() / b.abs().max()).item() < 1e-5, name
+
+
+def test_multi_device_layouts_at_world_size_1(cuda):
+    """The three layouts on a one-rank NCCL group: the sharded dense solve
+    launches the Cholesky kernel once per iteration (the Schur and
+    whole-step kernels never) and ends on the single-device run's chi2
+    (rel 1e-4); pose-range and sharded packed start from the packed
+    run's chi2 (rel 1e-5)."""
+    import torch.distributed as dist
+
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.ops import cholesky as chol, gn_step as gs, schur_solve as ss
+    from boslam_torch.parallel.mesh import make_mesh
+    from boslam_torch.parallel.pose_range import pose_range_solve
+    from boslam_torch.parallel.sharded import sharded_solve
+    from boslam_torch.parallel.sharded_packed import sharded_packed_solve
+    from boslam_torch.solver.optimizer import solve, solve_packed
+    from boslam_torch.synth import generate_sequence
+
+    ig, _ = generate_sequence(301, 141, seed=3)
+    g, _ = build_graph(ig, init="triangulate")
+    mesh = make_mesh("cuda")
+    try:
+        assert (mesh.backend, mesh.size) == ("nccl", 1)
+        cfg = SolverConfig(linear_solver="dense", iters=20)
+        counts = [chol.cholesky_solve_padded.launches, ss.fused_schur_solve_blocks.launches,
+                  gs.fused_gn_step.launches]
+        _, st = sharded_solve(g, cfg, mesh)
+        assert [chol.cholesky_solve_padded.launches - counts[0],
+                ss.fused_schur_solve_blocks.launches - counts[1],
+                gs.fused_gn_step.launches - counts[2]] == [20, 0, 0]
+        c, c1 = st["chi2_robust"].cpu().numpy(), solve(g, cfg)[1]["chi2_robust"].cpu().numpy()
+        assert abs(c[-1] - c1[-1]) / c1[-1] < 1e-4, (c[-1], c1[-1])
+        pcfg = SolverConfig(linear_solver="schur_cg", iters=2, cg_tol=1e-7, lm_split=0,
+                            preconditioner="block_jacobi")
+        ref = solve_packed(g, pcfg)[1]["chi2_robust"].cpu().numpy()
+        for fn in (pose_range_solve, sharded_packed_solve):
+            c = fn(g, pcfg, mesh)[1]["chi2_robust"].cpu().numpy()
+            assert np.isfinite(c).all() and abs(c[0] - ref[0]) / ref[0] < 1e-5, (fn, c, ref)
+        assert mesh.bytes["all_gather"] > 0 and mesh.bytes["psum"] > 0
+    finally:
+        dist.destroy_process_group()

@@ -23,6 +23,8 @@ import boslam_torch.solver.two_level, boslam_torch.solver.coarse
 import boslam_torch.init.pose_graph, boslam_torch.io.checkpoint
 import boslam_torch.solver.bband, boslam_torch.io.native, boslam_torch.viz.draw
 import boslam_torch.utils.profiling
+import boslam_torch.parallel, boslam_torch.parallel.mesh, boslam_torch.parallel.sharded
+import boslam_torch.parallel.sharded_packed, boslam_torch.parallel.pose_range
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "boslam" or m.startswith("boslam.")

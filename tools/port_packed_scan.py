@@ -14,7 +14,13 @@ sum runs in another order).  ``big``: the 100k corridor, 5 iterations,
 ``walk``: the default walk at 10k, seed 3, GN and LM packed with and
 without hot-landmark splitting, flat schur_cg against packed.  ``lm``: the
 600-pose corridor of tests/test_torch_packed.py, 5 LM trials, windowed
-against take.  ``--jax`` adds the JAX package's runs (its windowed gather
+against take.  ``pose_range``: pose-range on one rank (gloo) against packed take
+(no hot-landmark rows), each piece of the first build as a norm-relative
+gap (``chip_smoke.range_pieces``; run from the repo root) and the chi2 trace: the 20k graph of
+POSE_RANGE_r05.json (generate_sequence(20000, 8000, seed, loop_closures=50),
+LM 3 under two_level, cg_iters 60, cg_tol 1e-7, warm start) for
+``--seeds``, and the 100k corridor (GN 2, block-Jacobi) beside its
+windowed run.  ``--jax`` adds the JAX package's runs (its windowed gather
 in Pallas interpret mode, so ``lm`` only; take at 10k and 100k).
 
 Prints one line per comparison: the relative chi2 gap per iteration.
@@ -57,10 +63,14 @@ def _jax_graph(g):
 
 def _packed(g, **kw):
     from boslam_torch.config import SolverConfig
+
+    return _solve_packed(g, SolverConfig(linear_solver="schur_cg", **kw))
+
+
+def _solve_packed(g, cfg):
     from boslam_torch.solver.optimizer import solve_packed
 
-    st = solve_packed(g, SolverConfig(linear_solver="schur_cg", **kw))[1]
-    return {k: v.numpy() for k, v in st.items()}
+    return {k: v.numpy() for k, v in solve_packed(g, cfg)[1].items()}
 
 
 def _packed_jax(g, **kw):
@@ -130,14 +140,44 @@ def lm(jax, seeds=None, **kw):
               f"{_rel(w['chi2_robust'], jw['chi2_robust'])}", flush=True)
 
 
+def pose_range(jax, seeds=(0,), **kw):
+    from chip_smoke import range_pieces
+
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.parallel.mesh import make_mesh
+    from boslam_torch.parallel.pose_range import pose_range_solve
+
+    mesh = make_mesh("cpu")
+    cases = [(f"r05 20k seed {s}", (20000, 8000, s), dict(loop_closures=50),
+              SolverConfig(linear_solver="schur_cg", iters=3, optimizer="lm", cg_tol=1e-7,
+                           cg_iters=60, lm_split=0, cg_warm_start=True,
+                           preconditioner="two_level")) for s in seeds]
+    cases.append(("corridor 100k seed 3", (100000, 39000, 3), dict(turn_every=10**9),
+                  SolverConfig(linear_solver="schur_cg", iters=2, preconditioner="block_jacobi",
+                               lm_split=0)))
+    for label, (n, nl, seed), gkw, cfg in cases:
+        g = _graph(n, nl, seed, **gkw)
+        gaps = range_pieces(torch, g, cfg, mesh)
+        r = {k: v.numpy() for k, v in pose_range_solve(g, cfg, mesh)[1].items()}
+        t = _solve_packed(g, cfg.replace(gather="take"))
+        line = (f"{label}: pieces {' '.join(f'{k} {v:.1e}' for k, v in gaps.items())}; range vs "
+                f"take {_rel(r['chi2_robust'], t['chi2_robust'])}, breakdown "
+                f"{r['cg_breakdown'].astype(int).tolist()} / {t['cg_breakdown'].astype(int).tolist()}")
+        if n == 100000:
+            w = _solve_packed(g, cfg.replace(gather="windowed"))
+            line += (f"; windowed vs take {_rel(w['chi2_robust'], t['chi2_robust'])}, breakdown "
+                     f"{w['cg_breakdown'].astype(int).tolist()}")
+        print(line, flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--what", nargs="+", default=["lm", "corridor", "big", "walk"],
-                    choices=["lm", "corridor", "big", "walk"])
+                    choices=["lm", "corridor", "big", "walk", "pose_range"])
     ap.add_argument("--jax", action="store_true", help="run the JAX package beside the port")
     ap.add_argument("--seeds", type=int, nargs="+", default=list(range(7)),
-                    help="corridor: the seeds to scan")
+                    help="corridor, pose_range: the seeds to scan")
     ap.add_argument("--preconditioner", default="auto",
                     help="corridor, big: the PCG preconditioner")
     ap.add_argument("--two-level-cycle", default="additive")
