@@ -14,7 +14,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from boslam_torch.device import resolve_device
+from boslam_torch.device import host_sync, resolve_device
 
 _INDEX_FIELDS = ("b_pose", "b_lm", "o_src", "o_dst", "fixed_pose_ix")
 
@@ -124,6 +124,30 @@ def unpack_delta(delta: torch.Tensor, n_poses: int, n_landmarks: int):
     dp = delta[: 3 * n_poses].reshape(n_poses, 3)
     dl = delta[3 * n_poses :].reshape(n_landmarks, 2)
     return dp, dl
+
+
+def first_coupled(g: FactorGraph) -> tuple[np.ndarray, int]:
+    """(first i64[NP], the gauge pose): for each pose, the lowest pose it
+    couples with in the gauge-masked reduced system S (itself at least).
+
+    Poses a and b couple through an odometry edge or a landmark both
+    observe; the gauge pose couples only with itself.  Structure, not
+    values: the edges go to the host once (inside ``host_sync`` when they
+    live on the card), never inside a solve loop.
+    """
+    NP_, NL = g.n_poses, g.n_landmarks
+    with host_sync(g.device):
+        fix = int(g.fixed_pose_ix)
+        src, dst = g.o_src.cpu().numpy(), g.o_dst.cpu().numpy()
+        bp, bl = g.b_pose.cpu().numpy(), g.b_lm.cpu().numpy()
+    first = np.arange(NP_)
+    keep = (src != fix) & (dst != fix)
+    np.minimum.at(first, np.maximum(src, dst)[keep], np.minimum(src, dst)[keep])
+    seen = bp != fix
+    lm_first = np.full(NL, NP_)
+    np.minimum.at(lm_first, bl[seen], bp[seen])
+    np.minimum.at(first, bp[seen], lm_first[bl[seen]])
+    return first, fix
 
 
 def full_state_vector(poses, landmarks) -> np.ndarray:

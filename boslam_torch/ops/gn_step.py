@@ -35,8 +35,7 @@ import numpy as np
 import torch
 
 from boslam_torch.config import SolverConfig
-from boslam_torch.device import host_sync
-from boslam_torch.graph.data import FactorGraph
+from boslam_torch.graph.data import FactorGraph, first_coupled
 from boslam_torch.ops import _build
 from boslam_torch.ops.cholesky import TILE, band_fits
 
@@ -99,30 +98,6 @@ def _sorted_by(keys: torch.Tensor, n_keys: int | None = None):
     if n_keys is not None:
         off = torch.searchsorted(sk, torch.arange(n_keys + 1, device=keys.device)).to(torch.int32)
     return order.to(torch.int32), sk.to(torch.int32), off
-
-
-def first_coupled(g: FactorGraph) -> tuple[np.ndarray, int]:
-    """(first i64[NP], the gauge pose): for each pose, the lowest pose it
-    couples with in the gauge-masked reduced system S (itself at least).
-
-    Poses a and b couple through an odometry edge or a landmark both
-    observe; the gauge pose couples only with itself.  Structure, not
-    values: the edges go to the host once (inside ``host_sync`` when they
-    live on the card), never inside a solve loop.
-    """
-    NP_, NL = g.n_poses, g.n_landmarks
-    with host_sync(g.device):
-        fix = int(g.fixed_pose_ix)
-        src, dst = g.o_src.cpu().numpy(), g.o_dst.cpu().numpy()
-        bp, bl = g.b_pose.cpu().numpy(), g.b_lm.cpu().numpy()
-    first = np.arange(NP_)
-    keep = (src != fix) & (dst != fix)
-    np.minimum.at(first, np.maximum(src, dst)[keep], np.minimum(src, dst)[keep])
-    seen = bp != fix
-    lm_first = np.full(NL, NP_)
-    np.minimum.at(lm_first, bl[seen], bp[seen])
-    np.minimum.at(first, bp[seen], lm_first[bl[seen]])
-    return first, fix
 
 
 def structural_band(g: FactorGraph) -> int:

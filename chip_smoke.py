@@ -68,6 +68,15 @@ from the preparation; the host's cost of one collective call; and
 ``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
 boslam_torch solve ... --pose-range`` as a subprocess.
 
+Between the bench subcommand and the multi-device layouts runs the
+measurement layer: the card's ``utils/roofline.chip_spec()`` beside
+nvidia-smi, the four kernels' bounds through ``utils/roofline`` (held to
+the kernel table's on an H100 SXM), ``boslam_torch.bench``'s headline (its
+keys, its chi2 check, 0 < roofline_util <= 1.05, the whole-step kernel's
+launches), the six paths of ``tools/port_headline_ab.py`` at one repeat,
+each held to the CPU with its kernel's launches, and
+``tools/port_scaling_bench.py`` config 4.
+
 Prints the card, the build, one line per check, then a JSON line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero; it also exits non-zero, before
@@ -85,8 +94,6 @@ import time
 
 import numpy as np
 
-H100_F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 SEED = 3  # generate_sequence(301, 141, seed=3): 301 poses, 141 landmarks, N = 1185
 ITERS = 50
 # generate_sequence(301, 141, seed=16, loop_closures=4): on seed 3 the
@@ -242,10 +249,11 @@ def _launches_per_call(torch, fn) -> int:
 
 
 def _bound_ms(fmas: float, nbytes: float) -> tuple[float, str]:
-    """Least time for ``fmas`` f32 FMAs (2 flops each) and ``nbytes`` moved."""
-    t_ops = 2.0 * fmas / H100_F32_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """Least time on this card for ``fmas`` f32 FMAs (2 flops each) and
+    ``nbytes`` moved, from its peaks (``utils/roofline.chip_spec``)."""
+    from boslam_torch.utils import roofline
+
+    return roofline.bound_ms(fmas, nbytes, roofline.chip_spec())
 
 
 def _spd(n, rng, cond=1e4):
@@ -262,6 +270,8 @@ def _check_error(name, err_k, err_p):
 
 def check_cholesky(torch, chol, H, b, label):
     """Kernel vs plain vs f64 on one system; returns the measurements."""
+    from boslam_torch.utils import roofline
+
     n = H.shape[0]
     x_k = chol.cholesky_solve_padded(H, b)
     x_p = chol.cholesky_solve_padded_plain(H, b)
@@ -279,8 +289,7 @@ def check_cholesky(torch, chol, H, b, label):
         "library": lambda: torch.cholesky_solve(b[:, None], torch.linalg.cholesky(H))})
     plain_ms = _time_ms(torch, {"plain": lambda: chol.cholesky_solve_padded_plain(H, b)},
                         reps=3, rounds=3)["plain"]
-    # factorization n^3/6 FMAs, two triangular solves n^2/2 each
-    bound, by = _bound_ms(n**3 / 6 + n * n, 4 * (n * n + 2 * n))
+    bound, by = _bound_ms(*roofline.cholesky_work(n))
     r = dict(shape=[n], tile=chol.TILE, max_abs_err=(x_k - x_p).abs().max().item(),
              err_vs_f64=err_k, plain_err_vs_f64=err_p, ms=t["kernel"], plain_ms=plain_ms,
              bound_ms=bound, bound_by=by, library_ms=t["library"],
@@ -319,6 +328,8 @@ def check_schur(torch, ss, inputs, lam, label, band_tiles=None, graph=None):
     route on the same inputs, to the bit, and timed beside it.  ``graph``:
     the bound is counted on the graph's envelope (as row 3's), else on the
     dense algorithm."""
+    from boslam_torch.utils import roofline
+
     Np, Ml = inputs[1].shape
     x_k, dl_k = ss.fused_schur_solve_blocks(*inputs, lam, band_tiles)
     x_p, dl_p = ss.fused_schur_solve_blocks_plain(*inputs, lam, band_tiles)
@@ -354,16 +365,8 @@ def check_schur(torch, ss, inputs, lam, label, band_tiles=None, graph=None):
     ms, chol_lib_ms = t["kernel"], t["chol_library"]
     plain_ms = _time_ms(torch, {"plain": lambda: ss.fused_schur_solve_blocks_plain(
         *inputs, lam, band_tiles)}, reps=3, rounds=3)["plain"]
-    if graph is not None:
-        fmas, nbytes = _schur_solve_work(graph)
-    else:
-        # W, the lower triangle of W U^T, rhs, the factorization (Np^3/6), the
-        # two triangular solves (Np^2/2 each), U^T x and the 2x2 block apply
-        fmas = (2 * Np * Ml + Np * (Np + 1) / 2 * Ml + Np * Ml + Np**3 / 6 + Np * Np + Np * Ml
-                + 2 * Ml)
-        # inputs Hpp, U, Hb [Ml/2,2,2], bp, bl, mask, lam; outputs x, dl
-        nbytes = 4 * (Np * Np + Np * Ml + 2 * Ml + 3 * Np + 2 * Ml + 1 + Np + Ml)
-    bound, by = _bound_ms(fmas, nbytes)
+    bound, by = _bound_ms(*(roofline.schur_solve_work(graph) if graph is not None
+                            else roofline.schur_solve_dense_work(Np, Ml)))
     err = max((x_k - x_p).abs().max().item(), (dl_k - dl_p).abs().max().item())
     r = dict(shape=[Np, Ml], route=_route(band_tiles), band_tiles=band_tiles,
              max_abs_err=err, err_vs_f64=err_k, plain_err_vs_f64=err_p, ms=ms,
@@ -389,52 +392,6 @@ def _f64_step(g, cfg):
     return gn_step(g64, cfg.replace(linear_solver="dense", fused_step="off"))[0]
 
 
-def _schur_solve_work(g):
-    """(FMAs, bytes) that the reduced-system solve of this graph needs,
-    counted on its envelope.
-
-    FMAs: the landmark elimination per landmark with k distinct observing
-    poses (W: 3k x 2, the lower triangle of W U^T: 3k(3k+1)/2 entries of
-    2 FMAs, its rhs share), the Cholesky of S over its envelope under the
-    pose order (row i with w_i entries left of the diagonal: w_i(w_i+1)/2;
-    rows are coupled through odometry and shared landmarks, as
-    ``gn_step.first_coupled`` finds them), both substitutions, and dl (U^T
-    x over the pairs, the 2x2 block apply).  Bytes: the nonzero inputs
-    (Hpp's diagonal and odometry blocks, U's pair blocks, Hll^-1's blocks,
-    bp, bl, the mask, lam) and x, dl."""
-    from boslam_torch.ops import gn_step as gs
-
-    NP_, NL = g.n_poses, g.n_landmarks
-    bp, bl = g.b_pose.cpu().numpy(), g.b_lm.cpu().numpy()
-    src, dst = g.o_src.cpu().numpy(), g.o_dst.cpu().numpy()
-    pairs = np.unique(bp * NL + bl)
-    k = np.bincount(pairs % NL, minlength=NL).astype(np.float64)
-    schur = np.sum(3 * k * 2 * 2 + 3 * k * (3 * k + 1) + 3 * k * 2)
-    first, _ = gs.first_coupled(g)
-    w = ((3 * np.arange(NP_)[:, None] + np.arange(3)) - 3 * first[:, None]).astype(np.float64)
-    chol = np.sum(w * (w + 1) / 2) + 2 * np.sum(w + 1)
-    fmas = schur + chol + 6 * len(pairs) + 4 * NL
-    odo_pairs = len(np.unique(np.minimum(src, dst) * NP_ + np.maximum(src, dst)))
-    nbytes = 4 * (9 * NP_ + 18 * odo_pairs + 6 * len(pairs) + 4 * NL + 3 * NP_ + 2 * NL + 3 * NP_
-                  + 1 + 3 * NP_ + 2 * NL)
-    return float(fmas), float(nbytes)
-
-
-def _gn_step_work(g):
-    """(FMAs, bytes) that one GN step needs on this graph.
-
-    FMAs: the edge terms (~60 per bearing, ~230 per odometry edge), the
-    sums, the reduced-system solve on its envelope (``_schur_solve_work``)
-    and boxplus.  Bytes: the state in and out, the edges and the stats
-    row."""
-    NP_, NL, NB, NO = g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry
-    solve, _ = _schur_solve_work(g)
-    edges = 60 * NB + 230 * NO + 9 * (NB + 2 * NO) + 11 * NB + 9 * NO + 10 * NL
-    fmas = edges + solve + 8 * NP_ + 2 * NL
-    nbytes = 4 * (2 * (3 * NP_ + 2 * NL) + 4 * NB + 14 * NO + 2 + 8)
-    return float(fmas), float(nbytes)
-
-
 def check_gn_step(torch, gs, g, cfg, label):
     """One whole step on the card: the kernel against its plain version and
     the unfused Schur step, on the card and on the CPU, all five against the
@@ -448,6 +405,7 @@ def check_gn_step(torch, gs, g, cfg, label):
     so theirs changes from run to run (tools/gn_step_accuracy.py).  ``g`` is
     built on the CPU, so the kernel's reading repeats."""
     from boslam_torch.solver.optimizer import gn_step
+    from boslam_torch.utils import roofline
 
     prep = gs.prep_static(g, gs.tile_band(g))
     poses, lms = g.poses.clone(), g.landmarks.clone()
@@ -494,10 +452,8 @@ def check_gn_step(torch, gs, g, cfg, label):
     ms = t["kernel"]
     plain_ms = _time_ms(torch, {"plain": lambda: gs.fused_gn_step_plain(prep, g.poses, g.landmarks,
                                                                         cfg)}, reps=3, rounds=3)["plain"]
-    fmas, nbytes = _gn_step_work(g)
+    fmas, nbytes = roofline.gn_step_work(g)
     bound, by = _bound_ms(fmas, nbytes)
-    # the dense algorithm's own count, for scale: W U^T lower half, Cholesky, solves
-    dense_fmas = prep.Np * (prep.Np + 1) / 2 * prep.Ml + prep.Np**3 / 6 + prep.Np**2
     r = dict(shape=[prep.Np, prep.Ml], graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry],
              route=_route(prep.band_tiles), band_tiles=prep.band_tiles,
              band_of_s=gs.structural_band(g), dense_route_ms=t.get("dense"),
@@ -506,7 +462,8 @@ def check_gn_step(torch, gs, g, cfg, label):
              clamped=[int(rk[3]), int(rk[4])],
              max_abs_err=max_abs_err, unfused_vs_plain=gap, err_vs_f64=err64, ms=ms,
              plain_ms=plain_ms, bound_ms=bound, bound_by=by, fmas=fmas, bytes=nbytes,
-             dense_algorithm_bound_ms=_bound_ms(dense_fmas, 0.0)[0], library_ms=None,
+             dense_algorithm_bound_ms=_bound_ms(roofline.dense_step_fmas(prep.Np, prep.Ml),
+                                                0.0)[0], library_ms=None,
              launches_per_call=_launches_per_call(torch, lambda: kern.step(row)))
     print(f"gn_step {label}: " + json.dumps(r))
     return r
@@ -716,6 +673,8 @@ def check_windowed(torch, wg, pk, n_poses, n_landmarks, rng):
     C 2 and 4; the landmark grid, K 24, C 3) and on edge cases: 128-row
     tiles, a window wider than the values, poisoned and -1 slots.  Every
     result must equal the plain version to the bit.  Returns the rows."""
+    from boslam_torch.utils import roofline
+
     rows = {}
     for name, idx_c, omega, plan_c, M, chans in (
             ("pose grid", pk.p_lm, pk.p_omega, pk.p_plan, n_landmarks, (2, 4)),
@@ -730,8 +689,7 @@ def check_windowed(torch, wg, pk, n_poses, n_landmarks, rng):
             ms, lib_ms = t["kernel"], t["library"]
             plain_ms = _time_ms(torch, {"plain": lambda: wg.windowed_take_plain(values, idx, plan)},
                                 reps=5, rounds=3)["plain"]
-            # idx, values and the output, each once; no arithmetic to speak of
-            nbytes = 4 * (R * K + M * C + R * K * C)
+            nbytes = roofline.windowed_take_bytes(R, K, M, C)
             bound, by = _bound_ms(0.0, nbytes)
             r = dict(shape=[R, K, C], values_rows=M, window=plan.window, tile_rows=plan.tile_rows,
                      n_tiles=plan.n_tiles, last_tile_rows=R - (plan.n_tiles - 1) * plan.tile_rows,
@@ -1321,6 +1279,95 @@ def run_bench_phase(torch, generate_sequence, chi2_fused):
           + lines[-1])
 
 
+# PERF.md section 6's bounds of the four kernels on an H100 SXM (67 TFLOP/s
+# f32, 3.35 TB/s), to three significant figures: the Cholesky at the graph's
+# dense system (n = 1280), the Schur solve and the whole step on the
+# 301/141 graph's envelope, the gather on the 100k corridor's landmark grid
+TABLE_BOUNDS_SXM = {"cholesky_solve_padded": 0.0105, "fused_schur_solve_blocks": 0.0000423,
+                    "fused_gn_step": 0.0000497, "windowed_take": 0.00478}
+# the kernel each A/B path launches, 50 times in a run; the CG paths none
+AB_LAUNCHES = {"dense": "cholesky", "schur": "schur", "schur_fused": "gn_step"}
+
+
+def _tool(name):
+    """A module of tools/ by file (tools/ is no package)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_measurement_phase(torch, counters, g, g_cpu, chi2_cpu, bounds):
+    """The measurement layer on the card: ``chip_spec()`` beside
+    nvidia-smi; the kernels' bounds (``bounds``, computed by
+    ``utils/roofline``) against the kernel table's on an H100 SXM;
+    ``boslam_torch.bench``'s main path (its JSON line, the chi2 check,
+    0 < roofline_util <= 1.05, 50 whole-step launches per run);
+    ``tools/port_headline_ab.py``'s six paths at one repeat on the 301/141
+    graph (the CG paths without their first run), each held to the CPU (``chi2_cpu``: the CPU references the
+    script already has) with its kernel's launches; and
+    ``tools/port_scaling_bench.py`` config 4 with its roofline."""
+    from boslam_torch import bench
+    from boslam_torch.utils import roofline
+
+    t0 = time.perf_counter()
+    spec = roofline.chip_spec()
+    print("measurement: chip_spec() " + json.dumps(spec._asdict()) + f" beside nvidia-smi: "
+          f"{_card_line()}")
+    print("measurement: kernel bounds (ms) from utils/roofline on this card: " + json.dumps(bounds))
+    if spec.name == "NVIDIA H100 SXM":
+        table = {k: float(f"{v:.3g}") for k, v in bounds.items()}
+        if table != TABLE_BOUNDS_SXM:
+            raise AssertionError(f"measurement: bounds {table} differ from the kernel table's "
+                                 f"{TABLE_BOUNDS_SXM}")
+
+    for fn in counters.values():
+        fn.launches = 0
+    rec, info = bench.run("cuda")
+    runs = 1 + len(info["times_s"])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    util = rec["roofline_util"]
+    if not (set(bench.KEYS) <= set(rec) and rec["chi2_check"]["passed"]
+            and util is not None and 0 < util <= 1.05
+            and launches == _want(launches, gn_step=bench.ITERS * runs)):
+        raise AssertionError(f"measurement bench: {rec}, launches {launches} over {runs} runs")
+    print(f"measurement bench (boslam_torch.bench.run, {runs} runs of {bench.ITERS}, launches "
+          f"{launches}): " + json.dumps(rec))
+
+    ab = _tool("port_headline_ab")
+    # every kernel is built and every path has run by now: the three CG
+    # paths, which build none, run once, without the untimed first run
+    results = ab.run_paths(g, g_cpu, repeats=1, spec=spec, chi2_cpu=chi2_cpu, cg_warmup=False)
+    bad = ab.failures(results)
+    for name, r in results.items():
+        if "error" in r:
+            continue
+        want = _want(r["launches"], **({AB_LAUNCHES[name]: ab.ITERS} if name in AB_LAUNCHES
+                                      else {}))
+        # the JAX tool's models: all but dense read packed_outer_model, which
+        # at cg 0 (the direct Schur paths) counts the build only, so their
+        # share may round to 0
+        if r["launches"] != want or not 0 <= r["model_util"] <= 1.05:
+            bad.append(name)
+        print(f"measurement headline_ab {name}: " + json.dumps(r))
+    if bad:
+        raise AssertionError(f"measurement headline_ab: {bad} failed, missed the CPU's chi2 or "
+                             f"launched other kernels: {results}")
+
+    sb = _tool("port_scaling_bench")
+    r4 = sb.config_4_5(4, torch.device(DEV), spec=spec)
+    roof = r4["roofline"]
+    if not (r4["chi2_after"] < r4["chi2_initial"] and r4["tol_controlled"]["chi2_after"]
+            < r4["chi2_initial"] and 0 < roof["roofline_util"] <= 1.05):
+        raise AssertionError(f"measurement scaling config 4: {r4}")
+    print("measurement scaling_bench config 4: " + json.dumps(r4))
+    print(f"phase measurement: {time.perf_counter() - t0:.1f} s wall")
+
+
 def _graph_bytes(g):
     return sum(t.numel() * t.element_size()
                for t in (getattr(g, f.name) for f in dataclasses.fields(g)))
@@ -1781,7 +1828,8 @@ def main() -> int:
                 "gn_step": gs.fused_gn_step, "windowed_take": wg.windowed_take}
 
     # ---- gn-schur: GN under the exact Schur solve, the whole-step kernel off ----
-    st_cpu = _stats(solve(g_cpu, cfg_s)[1])
+    g_cpu_s, st_cpu = solve(g_cpu, cfg_s)
+    st_cpu = _stats(st_cpu)
     g2, st, counts, secs = _run_path(torch, solve, g, cfg_s, counters)
     schur_launches = counts["schur"]
     if schur_launches != ITERS or counts["schur_band"] != ITERS:
@@ -1801,7 +1849,8 @@ def main() -> int:
         ms_per_iter=secs_warm / ITERS * 1e3)))
 
     # ---- the dense path: GN under the Cholesky kernel ----
-    st_cpu_d = _stats(solve(g_cpu, cfg_d)[1])
+    g_cpu_d, st_cpu_d = solve(g_cpu, cfg_d)
+    st_cpu_d = _stats(st_cpu_d)
     _, st_d, counts_d, secs_d = _run_path(torch, solve, g, cfg_d, counters)
     chol_launches = counts_d["cholesky"]
     if chol_launches != ITERS:
@@ -1855,6 +1904,16 @@ def main() -> int:
     run_resume_phase(torch, solve, g, cfg_f, counters, meta)
     print(f"phase resume: {time.perf_counter() - t0:.1f} s wall")
     run_bench_phase(torch, generate_sequence, float(c[-1]))
+    from boslam_torch.bench import final_chi2
+
+    chi2_schur_cpu = final_chi2(g_cpu_s, cfg_s)  # on the CPU "auto" takes this same path
+    run_measurement_phase(
+        torch, counters, g, g_cpu,
+        {"dense": final_chi2(g_cpu_d, cfg_d), "schur": chi2_schur_cpu,
+         "schur_fused": chi2_schur_cpu},
+        {"cholesky_solve_padded": chol_main["bound_ms"],
+         "fused_schur_solve_blocks": schur_main["bound_ms"],
+         "fused_gn_step": gn_main["bound_ms"], "windowed_take": win_row["bound_ms"]})
     t0 = time.perf_counter()
     st_cpu_l = _stats(solve(g_cpu, cfg_lm)[1])
     sharded_chol = run_multi_device_phase(

@@ -22,7 +22,8 @@ import boslam_torch.solver.btridiag, boslam_torch.solver.schur_packed
 import boslam_torch.solver.two_level, boslam_torch.solver.coarse
 import boslam_torch.init.pose_graph, boslam_torch.io.checkpoint
 import boslam_torch.solver.bband, boslam_torch.io.native, boslam_torch.viz.draw
-import boslam_torch.utils.profiling
+import boslam_torch.utils.profiling, boslam_torch.utils.roofline, boslam_torch.utils.collectives
+import boslam_torch.bench
 import boslam_torch.parallel, boslam_torch.parallel.mesh, boslam_torch.parallel.sharded
 import boslam_torch.parallel.sharded_packed, boslam_torch.parallel.pose_range
 import chip_smoke
