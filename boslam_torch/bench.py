@@ -44,6 +44,8 @@ import subprocess
 import sys
 import time
 
+from boslam_torch.utils.profiling import sync
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the C++ reference's datasets, where the JAX package's bench.py and tests
 # read them; nothing is looked for anywhere else (``--g2o`` overrides)
@@ -60,13 +62,6 @@ KEYS = ("metric", "value", "unit", "vs_baseline", "roofline_util", "roofline")
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
-
-
-def sync(device) -> None:
-    import torch
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def final_chi2(g, cfg) -> float:

@@ -1,19 +1,36 @@
 """Profiling and timing helpers (port of ``boslam/utils/profiling.py``):
 ``torch.profiler`` traces, timers bracketed by waits for the card, and a
-rough operation count of the dense GN step."""
+rough operation count of the dense GN step.
+
+The per-kernel readers (``device_time_by_kernel``, ``profile_path``,
+``launches_per_call``) and ``time_ms`` serve ``chip_smoke.py`` and the
+port's tools.  Their waits for the card are made inside
+``device.host_sync``, so they run inside a solve phase held under CUDA
+sync-debug mode "error".
+"""
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
-from boslam_torch.device import resolve_device
+from boslam_torch.device import host_sync, resolve_device
 
 TRACE_FILE = "boslam_torch_trace.json"
+# the port's kernels, by the names the profiler gives them
+PORT_KERNELS = ("chol_solve_kernel", "band_solve_kernel", "schur_w_kernel", "schur_s_kernel",
+                "schur_rhs_kernel", "schur_dl_kernel", "gn_edge_kernel", "gn_assemble_kernel",
+                "gn_finish_kernel", "windowed_take_kernel")
+# profiler sessions taken before an empty one counts as a failure: on the
+# H100 a session can come back with no device event at all (once in 20
+# sessions; short sessions after long ones; a one-operator session)
+SESSIONS = 3
 
 
 @contextlib.contextmanager
@@ -65,3 +82,193 @@ def gn_step_flops(n_poses: int, n_landmarks: int, n_bearing: int, n_odom: int) -
     edge = n_bearing * 120 + n_odom * 700  # residual + Jacobian + outer products
     chol = N**3 // 3 + 2 * N**2
     return edge + chol
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for the card (a CUDA ``dev``), the sync-debug mode lifted."""
+    if dev.type == "cuda":
+        with host_sync(dev):
+            torch.cuda.synchronize(dev)
+
+
+class DeviceTrace(NamedTuple):
+    """One profiled call.  ``kernels``: {name: (ms, launches)} of the
+    device's operations; ``busy_ms`` their summed time; ``span_ms`` first
+    start to last end; ``n_ops`` their count; ``wall_ms`` the host clock
+    around the call and its wait for the card; ``planes`` where they ran
+    (CUDA streams, or CPU threads on the CPU); ``n_host_threads`` the host
+    threads that recorded operators (0 on the CPU, whose threads are the
+    planes)."""
+    kernels: dict
+    busy_ms: float
+    span_ms: float
+    n_ops: int
+    wall_ms: float
+    planes: list
+    n_host_threads: int
+
+
+def _profile_once(fn: Callable, dev: torch.device):
+    """(events, wall ms) of one profiled call of ``fn``.  ``fn`` runs under
+    the caller's sync-debug mode; the profiler and the wait for the card run
+    with it lifted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = dev.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    # Kineto tears CUPTI down after each session unless told not to; PyTorch
+    # turns that off itself in a process with CUDA graphs, which chip_smoke.py
+    # captures.  On the H100 a session after a graph was built on the card
+    # came back empty with the teardown on and recorded with it off (one
+    # fresh process each); it does not stop the empty sessions of a long one.
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    mode = torch.cuda.get_sync_debug_mode() if cuda else 0
+    sync(dev)
+    with host_sync(dev), profile(activities=acts) as prof:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(mode)
+        try:
+            t0 = time.perf_counter()
+            fn()
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return list(prof.events()), wall_ms
+
+
+def device_time_by_kernel(fn: Callable, device=None) -> DeviceTrace:
+    """Device time by kernel of one call of ``fn`` under ``torch.profiler``.
+
+    On a CUDA ``device`` (the default) the device's operations are the
+    CUDA events (kernels, copies, sets); on one stream they do not
+    overlap, so busy <= span <= wall.  On the CPU they are the operators'
+    self times on the host threads.  A session that records no device
+    operation is taken again, ``SESSIONS`` times in all, each running
+    ``fn`` once more; after that this raises ``RuntimeError``: an empty
+    trace is no measurement."""
+    dev = resolve_device(device)
+    cpu_type = torch.autograd.DeviceType.CPU
+    for attempt in range(1, SESSIONS + 1):
+        events, wall_ms = _profile_once(fn, dev)
+        if dev.type == "cuda":
+            ops = [(e.name, e.time_range.start, e.time_range.end, e.time_range.elapsed_us(),
+                    f"cuda:{e.device_index} stream {e.device_resource_id}")
+                   for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+            host = {e.thread for e in events if e.device_type == cpu_type}
+        else:
+            ops = [(e.name, e.time_range.start, e.time_range.end, e.self_cpu_time_total,
+                    f"cpu thread {e.thread}") for e in events
+                   if e.device_type == cpu_type and not e.is_async]
+            host = set()
+        if ops:
+            break
+        print(f"device_time_by_kernel: session {attempt} of {SESSIONS} recorded no device "
+              f"operation", file=sys.stderr)
+    else:
+        raise RuntimeError(f"device_time_by_kernel: {SESSIONS} profiler sessions on {dev} "
+                           f"recorded no device operation")
+    kernels = {}
+    for name, _, _, us, _ in ops:
+        ms, n = kernels.get(name, (0.0, 0))
+        kernels[name] = (ms + us / 1e3, n + 1)
+    span_us = max(o[2] for o in ops) - min(o[1] for o in ops)
+    return DeviceTrace(kernels=kernels, busy_ms=sum(o[3] for o in ops) / 1e3,
+                       span_ms=span_us / 1e3, n_ops=len(ops), wall_ms=wall_ms,
+                       planes=sorted({o[4] for o in ops}), n_host_threads=len(host))
+
+
+def port_launches(tr: DeviceTrace, names=PORT_KERNELS) -> tuple[int, float]:
+    """(launches, ms) of the port's kernels (those whose name holds one of
+    ``names``) in the trace."""
+    hits = [v for k, v in tr.kernels.items() if any(n in k for n in names)]
+    return sum(n for _, n in hits), sum(ms for ms, _ in hits)
+
+
+def launches_per_call(fn: Callable, device=None) -> int:
+    """Kernel launches of the port that one call of ``fn`` makes, by the
+    profiler's device events (after one call outside the profiler)."""
+    dev = resolve_device(device)
+    fn()
+    sync(dev)
+    n, _ = port_launches(device_time_by_kernel(fn, dev))
+    if n == 0:
+        print("launches per call: no kernel of the port among the device events",
+              file=sys.stderr)
+    return n
+
+
+def profile_path(solve: Callable, g, cfg, iters: int = 5, top: int = 8) -> dict:
+    """Device time by kernel over ``iters`` warm iterations of one path,
+    ``solve(g, cfg)``, and the device's busy share of the window (one
+    stream, so kernels do not overlap and their sum is the busy time);
+    beside it the wall time of the warm-up run, outside the profiler."""
+    cfg = cfg.replace(iters=iters)
+    dev = g.device
+    sync(dev)
+    t0 = time.perf_counter()
+    solve(g, cfg)
+    sync(dev)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    tr = device_time_by_kernel(lambda: solve(g, cfg), dev)
+    ranked = sorted(tr.kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(
+        iters=iters, wall_ms_per_iter=tr.wall_ms / iters, wall_ms_per_iter_unprofiled=warm_ms / iters,
+        device_busy_ms_per_iter=tr.busy_ms / iters, device_busy_share=tr.busy_ms / tr.wall_ms,
+        device_ops_per_iter=tr.n_ops / iters,
+        top=[[name[:60], round(v[0] / iters, 4)] for name, v in ranked],
+    )
+
+
+def time_ms(fns: dict, reps=20, rounds: int = 5, graph: bool = False, device=None) -> dict:
+    """{name: median ms} of each ``fns[name]()``.
+
+    A round times each function once, in turn, as the mean of ``reps``
+    calls (an int, or {name: int}); the median over ``rounds`` rounds is
+    returned, so the functions are compared inside one window of the card's
+    clocks.  On a CUDA ``device`` (the default) the time is by CUDA events;
+    with ``graph`` the ``reps`` calls are captured once in a CUDA graph and
+    the graph is replayed: the time is then the device's, not the host's
+    enqueue rate, which bounds a call of a few microseconds.  On the CPU
+    the time is the host clock's, and ``graph`` is refused."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    if graph and not cuda:
+        raise ValueError("time_ms: graph replay needs a CUDA device")
+    reps = reps if isinstance(reps, dict) else {k: reps for k in fns}
+    with host_sync(dev):
+        run = {}
+        for k, fn in fns.items():
+            for _ in range(3):
+                fn()
+            sync(dev)
+            if graph:
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    for _ in range(reps[k]):
+                        fn()
+                run[k] = (g.replay, 1)
+            else:
+                run[k] = (fn, reps[k])
+        times = {k: [] for k in fns}
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+        for _ in range(rounds):
+            for k, (fn, n) in run.items():
+                fn()
+                sync(dev)
+                if cuda:
+                    start.record()
+                else:
+                    t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                if cuda:
+                    end.record()
+                    sync(dev)
+                    times[k].append(start.elapsed_time(end) / reps[k])
+                else:
+                    times[k].append((time.perf_counter() - t0) * 1e3 / reps[k])
+    return {k: float(np.median(v)) for k, v in times.items()}

@@ -75,7 +75,12 @@ the kernel table's on an H100 SXM), ``boslam_torch.bench``'s headline (its
 keys, its chi2 check, 0 < roofline_util <= 1.05, the whole-step kernel's
 launches), the six paths of ``tools/port_headline_ab.py`` at one repeat,
 each held to the CPU with its kernel's launches, and
-``tools/port_scaling_bench.py`` config 4.
+``tools/port_scaling_bench.py`` config 4.  After it, the trace + split
+phase: ``tools/port_trace_validate.py``'s dense, schur and packed chains,
+each profiled once, their launches of the port's kernels counted in the
+trace and their chi2 held to the CPU's chains, and
+``tools/port_packed_split_probe.py`` at 10k and 100k poses (the packed
+build, matvec and preconditioner, eager beside CUDA-graph replays).
 
 Prints the card, the build, one line per check, then a JSON line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  Any failed
@@ -93,6 +98,9 @@ import sys
 import time
 
 import numpy as np
+
+from boslam_torch.utils.profiling import (PORT_KERNELS, launches_per_call, profile_path,
+                                          time_ms)
 
 SEED = 3  # generate_sequence(301, 141, seed=3): 301 poses, 141 landmarks, N = 1185
 ITERS = 50
@@ -179,75 +187,6 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(torch, fns, reps=20, rounds=5, graph=False) -> dict:
-    """{name: median ms} of each ``fns[name]`` on the card by CUDA events.
-
-    A round times each function once, in turn, as the mean of ``reps``
-    calls (an int, or {name: int}); the median over ``rounds`` rounds is
-    returned, so the functions are compared inside one window of the card's
-    clocks.  With ``graph`` the ``reps`` calls are captured once in a CUDA
-    graph and the graph is replayed: the time is then the device's, not the
-    host's enqueue rate, which bounds a call of a few microseconds."""
-    reps = reps if isinstance(reps, dict) else {k: reps for k in fns}
-    run = {}
-    for k, fn in fns.items():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        if graph:
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                for _ in range(reps[k]):
-                    fn()
-            run[k] = (g.replay, 1)
-        else:
-            run[k] = (fn, reps[k])
-    times = {k: [] for k in fns}
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(rounds):
-        for k, (fn, n) in run.items():
-            fn()
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(n):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            times[k].append(start.elapsed_time(end) / reps[k])
-    return {k: float(np.median(v)) for k, v in times.items()}
-
-
-# the port's kernels, by the names the profiler gives them
-PORT_KERNELS = ("chol_solve_kernel", "band_solve_kernel", "schur_w_kernel", "schur_s_kernel",
-                "schur_rhs_kernel", "schur_dl_kernel", "gn_edge_kernel", "gn_assemble_kernel",
-                "gn_finish_kernel", "windowed_take_kernel")
-
-
-def _launches_per_call(torch, fn) -> int:
-    """Kernel launches of the port that one call of ``fn`` makes, by the
-    profiler's device events.  Count before the first ``profile_path``: a
-    short session after those records no device events on this card.  A
-    session before them can come back empty too (no device event at all,
-    seen once in 20 sessions on the H100); an empty session is no count, so
-    it is taken again, up to three times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, 4):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-        print(f"launches per call: session {attempt} recorded no device events")
-    n = sum(1 for name in names if any(k in name for k in PORT_KERNELS))
-    if n == 0:
-        print(f"launches per call: no kernel of the port among the device events {names}")
-    return n
-
-
 def _bound_ms(fmas: float, nbytes: float) -> tuple[float, str]:
     """Least time on this card for ``fmas`` f32 FMAs (2 flops each) and
     ``nbytes`` moved, from its peaks (``utils/roofline.chip_spec``)."""
@@ -284,11 +223,11 @@ def check_cholesky(torch, chol, H, b, label):
     _check_error(f"cholesky {label}", err_k, err_p)
     if not torch.equal(chol.cholesky_solve_padded(H, b), x_k):
         raise AssertionError(f"cholesky {label}: a second solve gives other bits")
-    t = _time_ms(torch, {
+    t = time_ms({
         "kernel": lambda: chol.cholesky_solve_padded(H, b),
         "library": lambda: torch.cholesky_solve(b[:, None], torch.linalg.cholesky(H))})
-    plain_ms = _time_ms(torch, {"plain": lambda: chol.cholesky_solve_padded_plain(H, b)},
-                        reps=3, rounds=3)["plain"]
+    plain_ms = time_ms({"plain": lambda: chol.cholesky_solve_padded_plain(H, b)},
+                       reps=3, rounds=3)["plain"]
     bound, by = _bound_ms(*roofline.cholesky_work(n))
     r = dict(shape=[n], tile=chol.TILE, max_abs_err=(x_k - x_p).abs().max().item(),
              err_vs_f64=err_k, plain_err_vs_f64=err_p, ms=t["kernel"], plain_ms=plain_ms,
@@ -361,9 +300,9 @@ def check_schur(torch, ss, inputs, lam, label, band_tiles=None, graph=None):
                     ss.fused_schur_solve_blocks(*inputs, lam, bt), (x_k, dl_k))):
                 raise AssertionError(f"schur {label}: band {bt} differs from band {band_tiles}")
             fns[f"band {bt}"] = lambda bt=bt: ss.fused_schur_solve_blocks(*inputs, lam, bt)
-    t = _time_ms(torch, fns)
+    t = time_ms(fns)
     ms, chol_lib_ms = t["kernel"], t["chol_library"]
-    plain_ms = _time_ms(torch, {"plain": lambda: ss.fused_schur_solve_blocks_plain(
+    plain_ms = time_ms({"plain": lambda: ss.fused_schur_solve_blocks_plain(
         *inputs, lam, band_tiles)}, reps=3, rounds=3)["plain"]
     bound, by = _bound_ms(*(roofline.schur_solve_work(graph) if graph is not None
                             else roofline.schur_solve_dense_work(Np, Ml)))
@@ -375,8 +314,8 @@ def check_schur(torch, ss, inputs, lam, label, band_tiles=None, graph=None):
              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
              bound_basis="envelope" if graph is not None else "dense", library_ms=None,
              cholesky_only_library_ms=chol_lib_ms,
-             launches_per_call=_launches_per_call(
-                 torch, lambda: ss.fused_schur_solve_blocks(*inputs, lam, band_tiles)))
+             launches_per_call=launches_per_call(
+                 lambda: ss.fused_schur_solve_blocks(*inputs, lam, band_tiles)))
     print(f"schur {label} Np={Np} Ml={Ml}: " + json.dumps(r))
     return r
 
@@ -448,10 +387,10 @@ def check_gn_step(torch, gs, g, cfg, label):
     fns = {"kernel": lambda: kern.step(row)}
     if prep.band_tiles is not None:
         fns["dense"] = lambda: kern_d.step(row_d)
-    t = _time_ms(torch, fns)
+    t = time_ms(fns)
     ms = t["kernel"]
-    plain_ms = _time_ms(torch, {"plain": lambda: gs.fused_gn_step_plain(prep, g.poses, g.landmarks,
-                                                                        cfg)}, reps=3, rounds=3)["plain"]
+    plain_ms = time_ms({"plain": lambda: gs.fused_gn_step_plain(prep, g.poses, g.landmarks,
+                                                                       cfg)}, reps=3, rounds=3)["plain"]
     fmas, nbytes = roofline.gn_step_work(g)
     bound, by = _bound_ms(fmas, nbytes)
     r = dict(shape=[prep.Np, prep.Ml], graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry],
@@ -464,7 +403,7 @@ def check_gn_step(torch, gs, g, cfg, label):
              plain_ms=plain_ms, bound_ms=bound, bound_by=by, fmas=fmas, bytes=nbytes,
              dense_algorithm_bound_ms=_bound_ms(roofline.dense_step_fmas(prep.Np, prep.Ml),
                                                 0.0)[0], library_ms=None,
-             launches_per_call=_launches_per_call(torch, lambda: kern.step(row)))
+             launches_per_call=launches_per_call(lambda: kern.step(row)))
     print(f"gn_step {label}: " + json.dumps(r))
     return r
 
@@ -606,40 +545,6 @@ def _band_route(band, label):
     return band
 
 
-def profile_path(torch, solve, g, cfg, iters=5, top=8):
-    """Device time by kernel over ``iters`` warm iterations of one path, and
-    the device's busy share of the window (one stream, so kernels do not
-    overlap and their sum is the busy time); beside it the wall time of the
-    warm-up run, outside the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    cfg = cfg.replace(iters=iters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    solve(g, cfg)
-    torch.cuda.synchronize()
-    warm_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solve(g, cfg)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, n_kernels = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            n_kernels += 1
-    busy_us = sum(by_name.values())
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return dict(
-        iters=iters, wall_ms_per_iter=wall_us / iters / 1e3,
-        wall_ms_per_iter_unprofiled=warm_us / iters / 1e3,
-        device_busy_ms_per_iter=busy_us / iters / 1e3, device_busy_share=busy_us / wall_us,
-        device_ops_per_iter=n_kernels / iters,
-        top=[[name[:60], round(us / iters / 1e3, 4)] for name, us in ranked],
-    )
-
-
 def _corridor(generate_sequence, build_graph, n_poses, n_landmarks, seed, turn_every=50, **kw):
     """A synthetic graph built on the CPU (the triangulation sums with
     atomics on the card): (graph on the CPU, meta, ground truth).  A
@@ -684,11 +589,11 @@ def check_windowed(torch, wg, pk, n_poses, n_landmarks, rng):
         for C in chans:
             values = torch.from_numpy(rng.standard_normal((M, C)).astype(np.float32)).to(DEV)
             _, err = _hold_exact(torch, wg, values, idx, plan, f"{name} C={C}", valid)
-            t = _time_ms(torch, {"kernel": lambda: wg.windowed_take(values, idx, plan),
-                                 "library": lambda: values[idx]}, graph=True)
+            t = time_ms({"kernel": lambda: wg.windowed_take(values, idx, plan),
+                         "library": lambda: values[idx]}, graph=True)
             ms, lib_ms = t["kernel"], t["library"]
-            plain_ms = _time_ms(torch, {"plain": lambda: wg.windowed_take_plain(values, idx, plan)},
-                                reps=5, rounds=3)["plain"]
+            plain_ms = time_ms({"plain": lambda: wg.windowed_take_plain(values, idx, plan)},
+                               reps=5, rounds=3)["plain"]
             nbytes = roofline.windowed_take_bytes(R, K, M, C)
             bound, by = _bound_ms(0.0, nbytes)
             r = dict(shape=[R, K, C], values_rows=M, window=plan.window, tile_rows=plan.tile_rows,
@@ -892,7 +797,7 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
     bitwise = bool(np.array_equal(st2["chi2_robust"], c) and torch.equal(g3.poses, g2.poses)
                    and torch.equal(g3.landmarks, g2.landmarks))
     ate = ate_metrics(g2.poses.cpu().numpy(), match_gt_poses(meta, gt))
-    prof = profile_path(torch, solve_packed, g, cfg, iters=1)
+    prof = profile_path(solve_packed, g, cfg, iters=1)
     print("packed-windowed 10k: " + json.dumps(dict(
         graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry], seed=MID[2],
         launches=counts["windowed_take"], launches_expected=_packed_launches(st, cfg),
@@ -1368,6 +1273,108 @@ def run_measurement_phase(torch, counters, g, g_cpu, chi2_cpu, bounds):
     print(f"phase measurement: {time.perf_counter() - t0:.1f} s wall")
 
 
+# The trace + split phase (PERF.md section 6): tools/port_trace_validate.py's
+# dense and schur chains at 301/141 for TRACE_ITERS steps and its packed
+# chain on the 10k default walk for TRACE_PACKED[1] outer steps; then
+# tools/port_packed_split_probe.py on the walk at each of SPLIT_SIZES
+TRACE_ITERS = 30
+TRACE_PACKED = (10000, 5)
+SPLIT_SIZES = (10000, 100000)
+# launches of the port's kernels per step in each path's trace: the
+# Cholesky once (dense), the whole step's pipeline on the band route (schur)
+TRACE_LAUNCHES = {"dense": 1, "schur": 8, "packed": 0}
+# each chain's final chi2 against the same chain on the CPU.  The packed
+# chain's truncated f32 CG parts two orders of the same sums (the card's
+# segment sums use atomics) by 0.8e-4 to 2.2e-4 after 5 outers on the H100
+# (PERF.md section 6), so it is held at the walk's bound past its first
+# step (WALK_HELD)
+TRACE_CHI2_RTOL = {"dense": 1e-4, "schur": 1e-4, "packed": 2e-3}
+# the span is read on the device's clock (CUPTI's timestamps), the wall on
+# the host's: on the H100 the span of a run read up to 1.0e-4 longer than
+# the wall around it (0.26 ms over 2558 ms), so span <= wall is held to this
+# share of the wall
+CLOCK_RTOL = 1e-3
+# a phase's CUDA-graph replay against its eager time: the replay drops the
+# host's launches, so it may not be slower than the eager run beyond noise
+REPLAY_SLACK = 1.10
+
+
+def run_trace_split_phase(torch, g_cpu):
+    """The trace of each solver path and the split of the packed outer on
+    the card.  ``tools/port_trace_validate.py``: each chain from the CPU
+    graph's state, under sync-debug mode "error", holding exact launch
+    counts of the port's kernels in the trace (``TRACE_LAUNCHES``; schur on
+    the band route), 0 < busy <= span <= the profiled wall (``CLOCK_RTOL``),
+    and the final chi2 within ``TRACE_CHI2_RTOL`` of the same chain on the
+    CPU.
+    ``tools/port_packed_split_probe.py`` at ``SPLIT_SIZES``, both
+    preconditioners, each size in a process of its own (in this one, after
+    the earlier phases, its short profiler sessions came back empty three
+    times running on the H100; PERF.md section 7): every time positive, the
+    matvec and the apply captured, and every replay within
+    ``REPLAY_SLACK`` of its eager time."""
+    import os
+    import tempfile
+
+    from boslam_torch.bench import final_chi2
+    from boslam_torch.utils import roofline
+
+    t0 = time.perf_counter()
+    tv = _tool("port_trace_validate")
+    spec = roofline.chip_spec()
+    walk_cpu = tv.walk_graph(TRACE_PACKED[0], "cpu")
+    bad = []
+    for name, gc, iters in (("dense", g_cpu, TRACE_ITERS), ("schur", g_cpu, TRACE_ITERS),
+                            ("packed", walk_cpu, TRACE_PACKED[1])):
+        g_card = gc.to(DEV)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rec = tv.trace_path(name, g_card, iters, spec)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        chain = tv.Chain(name, gc)
+        rec["chi2_final_cpu"] = final_chi2(chain.run(iters), chain.cfg)
+        rec["chi2_rel_vs_cpu"] = abs(rec["chi2_final"] - rec["chi2_final_cpu"]) / rec["chi2_final_cpu"]
+        tr = rec["trace"]
+        if not (tr["port_kernel_launches"] == TRACE_LAUNCHES[name] * iters
+                and (name != "schur" or rec["route"] == "band")
+                and (name != "dense" or rec["kernel_work"]["launches"] == iters)
+                and 0 < tr["device_time_ms"] <= tr["device_span_ms"]
+                <= tr["profiled_wall_ms"] * (1 + CLOCK_RTOL)
+                and rec["chi2_rel_vs_cpu"] < TRACE_CHI2_RTOL[name]):
+            bad.append(name)
+        print(f"trace {name}: " + json.dumps(rec))
+    del walk_cpu
+    t_trace = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    for n in SPLIT_SIZES:
+        with tempfile.TemporaryDirectory() as d:
+            out = subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                               "port_packed_split_probe.py"),
+                                  str(n), "--json-out", f"{d}/split.json"], cwd=root,
+                                 capture_output=True, text=True, timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"split probe {n}: exit {out.returncode}: "
+                                     f"{out.stderr[-2000:]}")
+            with open(f"{d}/split.json") as f:
+                results = json.load(f)["results"]
+        for line in out.stdout.splitlines():
+            print(f"split {line}")
+        for which, r in results.items():
+            eager, replay = r["eager_ms"], r["replay_ms"]
+            if not (all(v > 0 for v in eager.values())
+                    and all(isinstance(replay[k], float) for k in ("matvec", "apply"))
+                    and all(0 < v <= REPLAY_SLACK * eager[k] for k, v in replay.items()
+                            if isinstance(v, float))):
+                bad.append(f"split {which} {n}")
+            print(f"split {which} n={n}: " + json.dumps(r))
+    if bad:
+        raise AssertionError(f"trace + split: {bad} failed their checks (records above)")
+    print(f"trace + split: the traces and their CPU chains {t_trace:.1f} s, the split probe "
+          f"{time.perf_counter() - t0 - t_trace:.1f} s")
+    print(f"phase trace + split: {time.perf_counter() - t0:.1f} s wall")
+
+
 def _graph_bytes(g):
     return sum(t.numel() * t.element_size()
                for t in (getattr(g, f.name) for f in dataclasses.fields(g)))
@@ -1603,7 +1610,7 @@ def run_multi_device_phase(torch, counters, g, g_cpu, single, generate_sequence,
             "p_lm", "p_meas", "p_omega", "l_pose", "l_meas", "l_omega"))
         if cfg.optimizer == "gn":  # the loop's time by kernel, apart from the preparation
             run["profile"] = profile_path(
-                torch, lambda gg, c: make_sharded_packed_solve(mesh, c)(gs10, pks10), g10, cfg,
+                lambda gg, c: make_sharded_packed_solve(mesh, c)(gs10, pks10), g10, cfg,
                 iters=2)
         print(f"{name}: " + json.dumps(dict(
             held_iterations=held, rel_vs_take=rel.tolist(), chi2=st["chi2_robust"].tolist(),
@@ -1674,7 +1681,7 @@ def run_multi_device_phase(torch, counters, g, g_cpu, single, generate_sequence,
         else:  # the loop's time by kernel, apart from the preparation
             dp0 = torch.zeros_like(sh.poses)
             rec["profile"] = profile_path(
-                torch, lambda gg, c: make_pose_range_solve(mesh, c, meta)(sh, dp0)[:2], gd, cfg,
+                lambda gg, c: make_pose_range_solve(mesh, c, meta)(sh, dp0)[:2], gd, cfg,
                 iters=2)
         print(f"{name}: " + json.dumps(rec))
         del sh, bl, gd
@@ -1768,7 +1775,7 @@ def main() -> int:
     plan_g = wg.plan_windows(idx_g.astype(np.int32), np.ones(idx_g.shape, bool), 4096, device=DEV)
     vals_g = torch.from_numpy(rng.standard_normal((4096, 3)).astype(np.float32)).to(DEV)
     idx_g = torch.from_numpy(idx_g.astype(np.int32)).to(DEV)
-    gather_per_call = _launches_per_call(torch, lambda: wg.windowed_take(vals_g, idx_g, plan_g))
+    gather_per_call = launches_per_call(lambda: wg.windowed_take(vals_g, idx_g, plan_g))
     print(f"windowed_take kernel launches per call: {gather_per_call}")
 
     ig, gt = generate_sequence(301, 141, seed=SEED)
@@ -1790,8 +1797,8 @@ def main() -> int:
     bp_d = torch.zeros(Np_d, device=H.device)
     bp_d[:N] = -mask * bvec
     chol_main = check_cholesky(torch, chol, Hp.contiguous(), bp_d, "graph dense system")
-    chol_main["launches_per_call"] = _launches_per_call(
-        torch, lambda: chol.cholesky_solve_padded(Hp.contiguous(), bp_d))
+    chol_main["launches_per_call"] = launches_per_call(
+        lambda: chol.cholesky_solve_padded(Hp.contiguous(), bp_d))
     print(f"cholesky kernel launches per solve: {chol_main['launches_per_call']} "
           f"(n = {Np_d}, tile {chol.TILE})")
     if not 1 <= chol_main["launches_per_call"] <= 3:
@@ -1894,7 +1901,7 @@ def main() -> int:
               f"gn-fused 4 loop closures seed {STALL_SEED}")
 
     for label, cfg in (("gn-schur", cfg_s), ("gn-dense", cfg_d), ("gn-fused", cfg_f)):
-        print(f"profile {label}: " + json.dumps(profile_path(torch, solve, g, cfg)))
+        print(f"profile {label}: " + json.dumps(profile_path(solve, g, cfg)))
 
     win_row, win_launches = run_scale_phases(torch, wg, counters, solve, generate_sequence,
                                              build_graph, SolverConfig)
@@ -1914,6 +1921,7 @@ def main() -> int:
         {"cholesky_solve_padded": chol_main["bound_ms"],
          "fused_schur_solve_blocks": schur_main["bound_ms"],
          "fused_gn_step": gn_main["bound_ms"], "windowed_take": win_row["bound_ms"]})
+    run_trace_split_phase(torch, g_cpu)
     t0 = time.perf_counter()
     st_cpu_l = _stats(solve(g_cpu, cfg_lm)[1])
     sharded_chol = run_multi_device_phase(

@@ -577,3 +577,31 @@ def test_multi_device_layouts_at_world_size_1(cuda):
         assert mesh.bytes["all_gather"] > 0 and mesh.bytes["psum"] > 0
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("path, per_step", [("dense", 1), ("schur", 8)])
+def test_trace_counts_port_kernel_launches(cuda, path, per_step):
+    """``tools/port_trace_validate.py``'s chain on the card: the trace counts
+    the Cholesky kernel once per step (dense) and the whole step's eight
+    launches per step on the band route (schur), and busy <= span <= wall."""
+    import importlib.util
+    import os
+
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.synth import generate_sequence
+    from boslam_torch.utils.roofline import chip_spec
+
+    tool = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "port_trace_validate.py")
+    spec = importlib.util.spec_from_file_location("port_trace_validate", tool)
+    tv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tv)
+    ig, _ = generate_sequence(301, 141, seed=3)
+    g = build_graph(ig, init="triangulate", device="cpu")[0].to(cuda)
+    rec = tv.trace_path(path, g, 5, chip_spec())
+    tr = rec["trace"]
+    assert tr["port_kernel_launches"] == per_step * 5
+    assert rec["kernel_work"]["launches"] == per_step * 5
+    assert rec["route"] == ("band" if path == "schur" else "kernel")
+    # the span is on the device's clock, the wall on the host's (chip_smoke.CLOCK_RTOL)
+    assert 0 < tr["device_time_ms"] <= tr["device_span_ms"] <= tr["profiled_wall_ms"] * 1.001
