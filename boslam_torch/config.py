@@ -9,6 +9,9 @@ refuses a value of ``band_width``, ``band_group``, ``coupling_dtype`` or
 package, the packed-path fields (GNC, ``cg_warm_start``, ``gather``,
 ``lm_split``, ``coupling_dtype``, the bband knobs) are read by
 ``solve_packed`` only.
+
+``MeshConfig`` has no counterpart: nothing in the JAX package reads it,
+and the port's mesh is ``parallel/mesh.Mesh`` over a process group.
 """
 
 from __future__ import annotations

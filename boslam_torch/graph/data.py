@@ -119,6 +119,12 @@ class GraphMeta:
         )
 
 
+def pack_delta(delta_poses: np.ndarray, delta_landmarks: np.ndarray) -> np.ndarray:
+    """Flatten per-block host deltas into the reference's packed
+    ``[3*NP | 2*NL]`` layout."""
+    return np.concatenate([np.ravel(delta_poses), np.ravel(delta_landmarks)])
+
+
 def unpack_delta(delta: torch.Tensor, n_poses: int, n_landmarks: int):
     """Split a packed ``[3*NP | 2*NL]`` delta into per-block tensors."""
     dp = delta[: 3 * n_poses].reshape(n_poses, 3)
@@ -156,7 +162,7 @@ def full_state_vector(poses, landmarks) -> np.ndarray:
     def host(x):
         return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
-    return np.concatenate([host(poses).reshape(-1), host(landmarks).reshape(-1)])
+    return pack_delta(host(poses), host(landmarks))
 
 
 def print_full_state(poses, landmarks, file=None) -> None:

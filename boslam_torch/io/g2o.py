@@ -162,6 +162,19 @@ def parse_g2o(path: str, use_native: Optional[bool] = None) -> ParsedG2O:
     return parsed
 
 
+def parse_g2o_bearings_only(path: str, use_native: Optional[bool] = None) -> ParsedG2O:
+    """The reference's legacy bearings-only overload: the same parse, with
+    the odometry edges dropped (empty arrays of the same dtypes)."""
+    p = parse_g2o(path, use_native=use_native)
+    return dataclasses.replace(
+        p,
+        odom_src_id=p.odom_src_id[:0],
+        odom_dst_id=p.odom_dst_id[:0],
+        odom_meas=p.odom_meas[:0],
+        odom_omega=p.odom_omega[:0],
+    )
+
+
 def write_g2o(
     path: str,
     pose_ids,

@@ -12,8 +12,9 @@ from __future__ import annotations
 import torch
 
 from boslam_torch.config import SolverConfig
+from boslam_torch.geometry.se2 import boxplus_state
 from boslam_torch.graph.data import FactorGraph, unpack_delta
-from boslam_torch.solver.normal_eq import assemble_dense
+from boslam_torch.solver.normal_eq import assemble_dense, chi2_stats
 
 
 def gauge_mask(N: int, n_poses: int, fixed_pose_ix: torch.Tensor, dtype) -> torch.Tensor:
@@ -24,17 +25,17 @@ def gauge_mask(N: int, n_poses: int, fixed_pose_ix: torch.Tensor, dtype) -> torc
 
 
 def _use_cholesky_kernel(H: torch.Tensor, cfg: SolverConfig | None) -> bool:
-    """The ``cholesky_backend`` rule.  "xla": never; "pallas": whenever the
-    padded size fits MAX_VMEM_DIM (the kernel on a CUDA tensor, its plain
-    version on a CPU one, as the JAX package takes interpret mode off the
-    TPU); "auto" (and no cfg): a CUDA tensor that fits."""
+    """The ``cholesky_backend`` rule.  No cfg, or "xla": never (the JAX
+    package's ``_use_pallas_cholesky`` rule); "pallas": whenever the padded
+    size fits MAX_VMEM_DIM (the kernel on a CUDA tensor, its plain version
+    on a CPU one, as the JAX package takes interpret mode off the TPU);
+    "auto": a CUDA tensor that fits."""
+    if cfg is None or cfg.cholesky_backend == "xla":
+        return False
     from boslam_torch.ops.cholesky import MAX_VMEM_DIM, pad_dim
 
-    backend = "auto" if cfg is None else cfg.cholesky_backend
-    if backend == "xla":
-        return False
     fits = pad_dim(H.shape[0]) <= MAX_VMEM_DIM
-    return fits if backend == "pallas" else fits and H.is_cuda
+    return fits if cfg.cholesky_backend == "pallas" else fits and H.is_cuda
 
 
 def solve_gauge_fixed(H, b, mask, cfg: SolverConfig | None = None):
@@ -78,3 +79,28 @@ def gn_build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, mesh=None):
     delta, spd_ok = solve_gauge_fixed(H, b, mask, cfg)
     dp, dl = unpack_delta(delta, g.n_poses, g.n_landmarks)
     return dp, dl, terms, spd_ok, {}
+
+
+def delta_norm(dp: torch.Tensor, dl: torch.Tensor) -> torch.Tensor:
+    """The step's 2-norm over poses and landmarks (the ``delta_norm`` stat)."""
+    return torch.sqrt(torch.sum(dp * dp) + torch.sum(dl * dl))
+
+
+def gn_step_dense(g: FactorGraph, cfg: SolverConfig) -> tuple[FactorGraph, dict]:
+    """One constant-damping GN iteration (the reference's ``step()``).
+
+    Stats: ``chi2_stats``'s keys, ``spd_ok`` and ``delta_norm``.  On a CUDA
+    graph under ``cholesky_backend="auto"`` the solve is the Cholesky
+    kernel's (``_use_cholesky_kernel``)."""
+    cfg.check_ported()
+    dp, dl, terms, spd_ok, _ = gn_build_and_solve(g, cfg, cfg.damping)
+    poses, landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
+    stats = chi2_stats(terms, cfg)
+    stats["spd_ok"] = spd_ok
+    stats["delta_norm"] = delta_norm(dp, dl)
+    return g.with_state(poses, landmarks), stats
+
+
+# The JAX package's jitted name.  PyTorch runs the step eagerly: the same
+# function, kept so that both packages export the same names.
+gn_step_dense_jit = gn_step_dense

@@ -60,10 +60,6 @@ def _build_and_solve(g: FactorGraph, cfg: SolverConfig, damping, band_tiles=None
     raise ValueError(f"unknown linear_solver {cfg.linear_solver!r}")
 
 
-def _delta_norm(dp, dl):
-    return torch.sqrt(torch.sum(dp * dp) + torch.sum(dl * dl))
-
-
 def gn_step(g: FactorGraph, cfg: SolverConfig, band_tiles: int | None = None, mesh=None):
     """One constant-damping GN iteration.  ``band_tiles`` picks the route
     of the Schur kernel (``schur.kernel_band``, computed once per solve by
@@ -81,7 +77,7 @@ def gn_step(g: FactorGraph, cfg: SolverConfig, band_tiles: int | None = None, me
     stats["spd_ok"] = spd_ok
     stats["accepted"] = torch.ones((), dtype=torch.bool, device=g.device)
     stats["damping"] = torch.full((), cfg.damping, dtype=g.poses.dtype, device=g.device)
-    stats["delta_norm"] = _delta_norm(dp, dl)
+    stats["delta_norm"] = GN.delta_norm(dp, dl)
     return g.with_state(poses, landmarks), stats
 
 
@@ -121,7 +117,7 @@ def lm_step(g: FactorGraph, lam: torch.Tensor, cfg: SolverConfig,
     stats["spd_ok"] = spd_ok
     stats["accepted"] = accept
     stats["damping"] = lam
-    stats["delta_norm"] = _delta_norm(dp, dl)
+    stats["delta_norm"] = GN.delta_norm(dp, dl)
     return g.with_state(poses, landmarks), new_lam, stats
 
 

@@ -38,10 +38,20 @@ def bearing_error_from(p, l, b_meas):
     return wrap_angle(predict_bearing(p, l) - b_meas)
 
 
+def bearing_error(poses, landmarks, b_pose, b_lm, b_meas):
+    """Wrapped angular error for every bearing edge: f32[NB]."""
+    return bearing_error_from(poses[b_pose], landmarks[b_lm], b_meas)
+
+
 def odometry_error_from(src, dst, o_meas):
     """Error from pre-gathered per-edge source/destination poses."""
     err = predict_odometry(src, dst) - o_meas
     return torch.cat([err[..., :2], wrap_angle(err[..., 2:3])], dim=-1)
+
+
+def odometry_error(poses, o_src, o_dst, o_meas):
+    """Euclidean-minus error with wrapped angle component: f32[NO, 3]."""
+    return odometry_error_from(poses[o_src], poses[o_dst], o_meas)
 
 
 def bearing_jacobians_from(p, l):
@@ -67,6 +77,11 @@ def bearing_jacobians_from(p, l):
     j_pose = torch.stack([-gRx, -gRy, j_theta], dim=-1)
     j_lm = torch.stack([gRx, gRy], dim=-1)
     return j_pose, j_lm
+
+
+def bearing_jacobians(poses, landmarks, b_pose, b_lm):
+    """Per-edge blocks (J_pose f32[NB, 3], J_lm f32[NB, 2])."""
+    return bearing_jacobians_from(poses[b_pose], landmarks[b_lm])
 
 
 def odometry_jacobians_from(src, dst):
@@ -98,6 +113,11 @@ def odometry_jacobians_from(src, dst):
         dim=-2,
     )
     return j_src, j_dst
+
+
+def odometry_jacobians(poses, o_src, o_dst):
+    """Per-edge blocks (J_src f32[NO, 3, 3], J_dst f32[NO, 3, 3])."""
+    return odometry_jacobians_from(poses[o_src], poses[o_dst])
 
 
 # The perturbed errors run on one-row batches: under forward-mode AD a

@@ -35,6 +35,7 @@ from boslam_torch.geometry.se2 import boxplus_state
 from boslam_torch.graph.data import FactorGraph
 from boslam_torch.graph.packed import PackedEdges
 from boslam_torch.ops.windowed_gather import WindowPlan, windowed_take
+from boslam_torch.solver.gauss_newton import delta_norm
 from boslam_torch.solver import residuals as R
 from boslam_torch.solver.robust import robust_cost, robust_weights
 from boslam_torch.solver.schur import (
@@ -427,7 +428,7 @@ def _step_stats(stats, ok, accepted, damping, kt, cfg, dp, dl, dev) -> dict:
     stats["damping"] = damping
     stats["kt"] = torch.full((), cfg.kernel_threshold if kt is None else kt,
                              dtype=torch.float32, device=dev)
-    stats["delta_norm"] = torch.sqrt(torch.sum(dp * dp) + torch.sum(dl * dl))
+    stats["delta_norm"] = delta_norm(dp, dl)
     return stats
 
 

@@ -15,7 +15,11 @@ for 50 iterations, GN under the dense solve for 50, LM under the Schur
 solve for 50, and the main path, GN under the exact Schur solve with the
 default fused_step="auto", which takes the whole-step kernel (gn-fused),
 for 50 on a chain graph and 50 on a graph with four loop closures.  Each
-path is checked against the port's own CPU run of the same graph.  The
+path is checked against the port's own CPU run of the same graph.  Right
+after GN-dense, 50 calls of ``gn_step_dense`` (the reference's step(),
+one Cholesky launch each) are held to GN-dense's chi2 on the card and on
+the CPU, and the four whole-graph residual forms to their ``_from`` forms,
+to the bit.  The
 whole step is also held against its plain version under each robust
 kernel, and driven on a closure graph where the f32 reduced system fails
 at an iterate, where a failed step must keep the state.
@@ -525,6 +529,68 @@ def _run_path(torch, solve, g, cfg, counters):
     counts.update({f"{k}_band": fn.band_launches for k, fn in counters.items()
                    if hasattr(fn, "band_launches")})
     return g2, _stats(st), counts, seconds
+
+
+def run_gn_step_dense_phase(torch, g, counters, st_d, st_cpu_d):
+    """50 calls of ``gn_step_dense`` on the card from the triangulated state,
+    under sync-debug "error" with every count at 0: every step SPD, chi2
+    falling, the last within 1e-4 of GN-dense's on the card (``st_d``) and
+    on the CPU (``st_cpu_d``), exactly one Cholesky launch per step.  Then
+    the whole-graph residual forms against their ``_from`` forms, to the
+    bit.  Returns the Cholesky launches."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver import residuals as res
+    from boslam_torch.solver.gauss_newton import gn_step_dense
+
+    cfg = SolverConfig(linear_solver="dense")
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gi, trace = g, []
+        for _ in range(ITERS):
+            gi, st = gn_step_dense(gi, cfg)
+            trace.append(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    c = torch.stack([s["chi2_robust"] for s in trace]).cpu().numpy()
+    spd = all(bool(s["spd_ok"]) for s in trace)
+    cd, cd_cpu = st_d["chi2_robust"], st_cpu_d["chi2_robust"]
+    rel, rel_cpu = abs(c[-1] - cd[-1]) / cd[-1], abs(c[-1] - cd_cpu[-1]) / cd_cpu[-1]
+    if counts != _want(counts, cholesky=ITERS):
+        raise AssertionError(f"gn-step-dense: launches {counts}, want {ITERS} of the Cholesky")
+    if not (spd and np.isfinite(c).all() and c[-1] < c[0] and rel < 1e-4 and rel_cpu < 1e-4):
+        raise AssertionError(f"gn-step-dense: spd_ok {spd}, chi2 {c[0]} -> {c[-1]}, GN-dense "
+                             f"{cd[-1]} (rel {rel:.2e}), CPU {cd_cpu[-1]} (rel {rel_cpu:.2e})")
+    p, l = g.poses[g.b_pose], g.landmarks[g.b_lm]
+    src, dst = g.poses[g.o_src], g.poses[g.o_dst]
+    pairs = {
+        "bearing_error": (res.bearing_error(g.poses, g.landmarks, g.b_pose, g.b_lm, g.b_meas),
+                          res.bearing_error_from(p, l, g.b_meas)),
+        "odometry_error": (res.odometry_error(g.poses, g.o_src, g.o_dst, g.o_meas),
+                           res.odometry_error_from(src, dst, g.o_meas)),
+        "bearing_jacobians": (res.bearing_jacobians(g.poses, g.landmarks, g.b_pose, g.b_lm),
+                              res.bearing_jacobians_from(p, l)),
+        "odometry_jacobians": (res.odometry_jacobians(g.poses, g.o_src, g.o_dst),
+                               res.odometry_jacobians_from(src, dst)),
+    }
+    for name, (whole, parts) in pairs.items():
+        whole, parts = (whole, parts) if isinstance(whole, tuple) else ((whole,), (parts,))
+        if not all(torch.equal(a, b) for a, b in zip(whole, parts, strict=True)):
+            raise AssertionError(f"{name}: the whole-graph form differs from the _from form")
+    print("gn-step-dense: " + json.dumps(dict(
+        launches=counts, ms_per_step=secs / ITERS * 1e3, chi2_first=float(c[0]),
+        chi2_final=float(c[-1]), chi2_final_gn_dense=float(cd[-1]),
+        chi2_final_cpu=float(cd_cpu[-1]), rel_vs_gn_dense=float(rel), rel_vs_cpu=float(rel_cpu),
+        max_abs_diff_chi2_vs_gn_dense=float(np.abs(c - cd).max()),
+        same_bits_as_gn_dense=bool(np.array_equal(c, cd)),
+        residual_forms_bit_equal=sorted(pairs))))
+    return counts["cholesky"]
 
 
 def _want(counts, **nonzero):
@@ -1869,6 +1935,9 @@ def main() -> int:
     print("gn-dense: " + json.dumps(dict(
         launches=counts_d, chi2_final=float(cd[-1]), chi2_final_cpu=float(cd_cpu[-1]),
         rel_vs_cpu=float(rel_d), ms_per_iter_first_run=secs_d / ITERS * 1e3)))
+    t0 = time.perf_counter()
+    step_dense_launches = run_gn_step_dense_phase(torch, g, counters, st_d, st_cpu_d)
+    print(f"phase gn-step-dense: {time.perf_counter() - t0:.1f} s wall")
 
     # ---- LM under the Schur solve ----
     cfg_lm = cfg_s.replace(optimizer="lm")
@@ -1940,7 +2009,8 @@ def main() -> int:
              bound_by=chol_main["bound_by"], library_ms=chol_main["library_ms"],
              launches_per_call=chol_main["launches_per_call"], shape=chol_main["shape"],
              path="gn-dense",
-             launches_other_paths={**{k: v["cholesky"] for k, v in other.items() if v["cholesky"]},
+             launches_other_paths={"gn_step_dense": step_dense_launches,
+                                   **{k: v["cholesky"] for k, v in other.items() if v["cholesky"]},
                                    **sharded_chol}),
         dict(name="fused_schur_solve_blocks", route="cuda",
              source="boslam_torch/ops/csrc/schur_solve.cu",

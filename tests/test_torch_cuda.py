@@ -605,3 +605,50 @@ def test_trace_counts_port_kernel_launches(cuda, path, per_step):
     assert rec["route"] == ("band" if path == "schur" else "kernel")
     # the span is on the device's clock, the wall on the host's (chip_smoke.CLOCK_RTOL)
     assert 0 < tr["device_time_ms"] <= tr["device_span_ms"] <= tr["profiled_wall_ms"] * 1.001
+
+
+def test_gn_step_dense_on_the_card(cuda):
+    """``gn_step_dense`` on a CUDA graph launches the Cholesky kernel once per
+    step.  Its state is held to the f64 step as test_cholesky_kernel_matches_plain
+    holds the solve: error within 10x the plain version's (the step on the
+    CPU under "pallas") + 1e-4."""
+    import dataclasses
+
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.ops import cholesky as chol
+    from boslam_torch.solver.gauss_newton import gn_step_dense
+
+    g = _graph(301, 141, cuda)
+    cfg = SolverConfig(linear_solver="dense")
+    before = chol.cholesky_solve_padded.launches
+    g1, st = gn_step_dense(g, cfg)
+    g2, _ = gn_step_dense(g1, cfg)
+    assert chol.cholesky_solve_padded.launches == before + 2
+    assert bool(st["spd_ok"]) and set(st) >= {"chi2_robust", "spd_ok", "delta_norm"}
+    assert not {"accepted", "damping"} & set(st)
+    gc = g.to("cpu")
+    g_p, _ = gn_step_dense(gc, cfg.replace(cholesky_backend="pallas"))
+    g64 = dataclasses.replace(gc, **{f.name: getattr(gc, f.name).double()
+                                     for f in dataclasses.fields(gc)
+                                     if getattr(gc, f.name).is_floating_point()})
+    x64, _ = gn_step_dense(g64, cfg.replace(cholesky_backend="xla"))
+    err_k = max(_dist(g1.poses, x64.poses), _dist(g1.landmarks, x64.landmarks))
+    err_p = max(_dist(g_p.poses, x64.poses), _dist(g_p.landmarks, x64.landmarks))
+    assert err_k <= 10 * err_p + 1e-4, (err_k, err_p)
+
+
+def test_cholesky_rule_on_the_card(cuda):
+    """No cfg takes torch.linalg on the card too, as the JAX package's no-cfg
+    rule takes XLA's; "auto" takes the kernel for a CUDA tensor that fits."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.ops import cholesky as chol
+    from boslam_torch.solver import gauss_newton as GN
+
+    H = torch.eye(1280, device=cuda)
+    assert not GN._use_cholesky_kernel(H, None)
+    assert GN._use_cholesky_kernel(H, SolverConfig(cholesky_backend="auto"))
+    before = chol.cholesky_solve_padded.launches
+    mask = torch.ones(1280, device=cuda)
+    delta, ok = GN.solve_gauge_fixed(H, torch.ones(1280, device=cuda), mask)
+    assert chol.cholesky_solve_padded.launches == before and bool(ok)
+    torch.testing.assert_close(delta, -torch.ones(1280, device=cuda))

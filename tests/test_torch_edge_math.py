@@ -151,7 +151,7 @@ def test_gnc_threshold_schedule(kernel):
                                    np.asarray(robust_jax.robust_cost(j, cfg_j, kt_j)), rtol=1e-6)
 
 
-def test_autodiff_jacobians_not_ported(graphs):
+def test_autodiff_edge_terms_match_jax(graphs):
     """Autodiff Jacobians are ported now (tests/test_torch_autodiff.py holds
     them against the JAX package): the edge terms under autodiff equal the
     JAX package's on the same graph (Jacobians at test_jacobians.py's
