@@ -316,10 +316,12 @@ def _range_matvec(blocks: RangeBlocks, sh: RangeShards, x_local, mask, meta: Ran
 
 
 def _range_s_diag(blocks: RangeBlocks, sh: RangeShards, mesh: Mesh) -> torch.Tensor:
-    """The rank's rows of diag(S) for block-Jacobi (one Hll^-1 gather)."""
+    """The rank's rows of diag(S) for block-Jacobi (one Hll^-1 gather),
+    summed in f64 and returned in f32 as ``packed_s_diag`` is."""
     Hinv_g = mesh.all_gather(blocks.Hll_inv)[sh.p_lm]  # [NPd, K, 2, 2]
-    corr = torch.einsum("pkij,pkjl,pkml->pim", blocks.Bp, Hinv_g, blocks.Bp)
-    return blocks.Hpp_diag - corr
+    Bp = blocks.Bp.double()
+    corr = torch.einsum("pkij,pkjl,pkml->pim", Bp, Hinv_g.double(), Bp)
+    return (blocks.Hpp_diag.double() - corr).float()
 
 
 def _range_two_level(blocks: RangeBlocks, sh: RangeShards, d_local, mask, meta: RangeMeta,

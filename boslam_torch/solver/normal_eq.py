@@ -9,6 +9,17 @@ as the JAX package leaves them to XLA.
 
 Under edge sharding (``mesh``, ``parallel/mesh.py``; None is one device)
 each rank assembles its edge shard and the sums are completed by ``psum``.
+
+The dense assembly's products and sums run in f64 (the JAX package: f32)
+from the f32 edge terms, and H and b are rounded to the graph's dtype once.
+H's odometry entries carry the reference's lever arms, and summed in f32 by
+``torch.matmul`` on the CPU they put the dense GN nearly twice as far from the
+f64 oracle as the JAX package's f32 sums do: on the 120x60 graph of
+tests/test_torch_reference_oracle.py and 19 starts a few f32 ulps from its
+own, 7 of 20 within the test's pose bound against the JAX package's 16,
+and 14 of 20 with the sums in f64 (``tools/port_oracle_floor.py --jax``).
+Rounded once, H and b no longer depend on the order of the sums, which on
+CUDA is the atomics' order in the scatter mode.
 """
 
 from __future__ import annotations
@@ -51,8 +62,8 @@ def use_matmul_assembly(g: FactorGraph, cfg: SolverConfig) -> bool:
     return cost <= cfg.matmul_assembly_budget
 
 
-def _one_hots(g: FactorGraph):
-    dtype = g.poses.dtype
+def _one_hots(g: FactorGraph, dtype=None):
+    dtype = g.poses.dtype if dtype is None else dtype
     Pb = F.one_hot(g.b_pose, g.n_poses).to(dtype)  # [NB, NP]
     Pl = F.one_hot(g.b_lm, g.n_landmarks).to(dtype)  # [NB, NL]
     Os = F.one_hot(g.o_src, g.n_poses).to(dtype)  # [NO, NP]
@@ -117,34 +128,42 @@ def _odom_cols(g: FactorGraph) -> torch.Tensor:
     return torch.stack([s0, s0 + 1, s0 + 2, d0, d0 + 1, d0 + 2], dim=-1)
 
 
+def _wide(terms: EdgeTerms) -> EdgeTerms:
+    """The edge terms in f64, the dtype of the dense assembly's sums."""
+    return EdgeTerms(*(x.double() for x in terms))
+
+
 def assemble_dense_matmul(g: FactorGraph, cfg: SolverConfig, terms: EdgeTerms | None = None):
-    """Design-matrix formulation: H = A^T W A, b = A^T W e as products."""
+    """Design-matrix formulation: H = A^T W A, b = A^T W e as products, in
+    f64, rounded once to the graph's dtype."""
     if terms is None:
         terms = edge_terms(g, cfg)
     NP_, NL = g.n_poses, g.n_landmarks
     NB, NO = g.n_bearing, g.n_odometry
-    Pb, Pl, Os, Od = _one_hots(g)
+    t = _wide(terms)
+    b_omega, o_omega = g.b_omega.double(), g.o_omega.double()
+    Pb, Pl, Os, Od = _one_hots(g, torch.float64)
 
-    A_pose = torch.einsum("ep,ei->epi", Pb, terms.bjp).reshape(NB, 3 * NP_)
-    A_lm = torch.einsum("el,ei->eli", Pl, terms.bjl).reshape(NB, 2 * NL)
+    A_pose = torch.einsum("ep,ei->epi", Pb, t.bjp).reshape(NB, 3 * NP_)
+    A_lm = torch.einsum("el,ei->eli", Pl, t.bjl).reshape(NB, 2 * NL)
     A_b = torch.cat([A_pose, A_lm], dim=1)
-    wH_b = (g.b_omega * terms.bw_H)[:, None]
+    wH_b = (b_omega * t.bw_H)[:, None]
     H = A_b.T @ (wH_b * A_b)
-    b = A_b.T @ (g.b_omega * terms.bw_b * terms.be)
+    b = A_b.T @ (b_omega * t.bw_b * t.be)
 
     A_o = (
-        torch.einsum("ep,erc->erpc", Os, terms.ojs)
-        + torch.einsum("ep,erc->erpc", Od, terms.ojd)
+        torch.einsum("ep,erc->erpc", Os, t.ojs)
+        + torch.einsum("ep,erc->erpc", Od, t.ojd)
     ).reshape(3 * NO, 3 * NP_)
-    Om_w = g.o_omega * terms.ow_H[:, None, None]
+    Om_w = o_omega * t.ow_H[:, None, None]
     WA = (
-        torch.einsum("ep,erc->erpc", Os, torch.einsum("eij,ejn->ein", Om_w, terms.ojs))
-        + torch.einsum("ep,erc->erpc", Od, torch.einsum("eij,ejn->ein", Om_w, terms.ojd))
+        torch.einsum("ep,erc->erpc", Os, torch.einsum("eij,ejn->ein", Om_w, t.ojs))
+        + torch.einsum("ep,erc->erpc", Od, torch.einsum("eij,ejn->ein", Om_w, t.ojd))
     ).reshape(3 * NO, 3 * NP_)
     H[: 3 * NP_, : 3 * NP_] += A_o.T @ WA
-    e_w = torch.einsum("eij,ej->ei", g.o_omega, terms.ow_b[:, None] * terms.oe).reshape(3 * NO)
+    e_w = torch.einsum("eij,ej->ei", o_omega, t.ow_b[:, None] * t.oe).reshape(3 * NO)
     b[: 3 * NP_] += A_o.T @ e_w
-    return H, b, terms
+    return H.to(g.poses.dtype), b.to(g.poses.dtype), terms
 
 
 def _scatter_blocks(M: torch.Tensor, cols: torch.Tensor, blocks: torch.Tensor) -> None:
@@ -159,9 +178,9 @@ def assemble_dense(g: FactorGraph, cfg: SolverConfig, terms: EdgeTerms | None = 
     """Full dense H f32[N,N] and b f32[N] (pre gauge-fix, pre damping).
 
     The robust quirk is preserved: w_H weights the H contribution, w_b the
-    b contribution.  In scatter mode on CUDA, ``index_add_`` sums by
-    atomics in an order that changes from run to run.  Under a ``mesh``
-    the rank's partial H and b are completed by one psum.
+    b contribution.  Both modes sum in f64 and round once (the module's
+    docstring says why).  Under a ``mesh`` the rank's partial H and b,
+    rounded, are completed by one psum.
     """
     if use_matmul_assembly(g, cfg):
         H, b, terms = assemble_dense_matmul(g, cfg, terms)
@@ -176,21 +195,22 @@ def _assemble_dense_scatter(g: FactorGraph, cfg: SolverConfig, terms: EdgeTerms 
     if terms is None:
         terms = edge_terms(g, cfg)
     N = g.state_dim
-    H = torch.zeros((N, N), dtype=g.poses.dtype, device=g.device)
-    b = torch.zeros((N,), dtype=g.poses.dtype, device=g.device)
+    t = _wide(terms)
+    b_omega, o_omega = g.b_omega.double(), g.o_omega.double()
+    H = torch.zeros((N, N), dtype=torch.float64, device=g.device)
+    b = torch.zeros((N,), dtype=torch.float64, device=g.device)
 
-    j5 = torch.cat([terms.bjp, terms.bjl], dim=-1)  # [NB, 5]
+    j5 = torch.cat([t.bjp, t.bjl], dim=-1)  # [NB, 5]
     cols = _bearing_cols(g)
-    wH = (g.b_omega * terms.bw_H)[:, None, None]
+    wH = (b_omega * t.bw_H)[:, None, None]
     _scatter_blocks(H, cols, wH * j5[:, :, None] * j5[:, None, :])
-    b.index_add_(0, cols.reshape(-1),
-                 ((g.b_omega * terms.bw_b * terms.be)[:, None] * j5).reshape(-1))
+    b.index_add_(0, cols.reshape(-1), ((b_omega * t.bw_b * t.be)[:, None] * j5).reshape(-1))
 
-    J = torch.cat([terms.ojs, terms.ojd], dim=-1)  # [NO, 3, 6]
-    OJ = torch.einsum("eij,ejk->eik", g.o_omega, J)
+    J = torch.cat([t.ojs, t.ojd], dim=-1)  # [NO, 3, 6]
+    OJ = torch.einsum("eij,ejk->eik", o_omega, J)
     H6 = torch.einsum("eij,eik->ejk", J, OJ)
-    b6 = torch.einsum("eij,ei->ej", OJ, terms.ow_b[:, None] * terms.oe)
+    b6 = torch.einsum("eij,ei->ej", OJ, t.ow_b[:, None] * t.oe)
     ocols = _odom_cols(g)
-    _scatter_blocks(H, ocols, terms.ow_H[:, None, None] * H6)
+    _scatter_blocks(H, ocols, t.ow_H[:, None, None] * H6)
     b.index_add_(0, ocols.reshape(-1), b6.reshape(-1))
-    return H, b, terms
+    return H.to(g.poses.dtype), b.to(g.poses.dtype), terms

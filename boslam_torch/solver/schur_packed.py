@@ -264,19 +264,28 @@ def packed_s_diag(blocks: PackedBlocks, pk: PackedEdges, mesh=None) -> torch.Ten
     (and rounded to bf16 under bf16 blocks, as the JAX package's einsum
     does); without one, the three unique Hll_inv components are gathered
     through the transposed [K, NP] indices and combined component by
-    component, as the JAX package does.  bf16 blocks are widened to f32.
+    component, as the JAX package does.
+
+    The products, the sum over the slots and the difference run in f64 (the
+    JAX package: f32) and the result is f32: the difference cancels where a
+    pose alone observes its landmarks, and in f32 the order of the sum then
+    decided the result, so pose-range's diag(S), the same sum in another
+    order, parted from this one by 3e-7 and its two-level preconditioner's
+    apply by 9e-2 (PERF.md section 6).  Under a ``mesh`` each rank's sum is
+    rounded to f32 before the psum.
     """
-    Bp = blocks.Bp.float()
+    Bp = blocks.Bp.double()
     if pk.p_plan is not None:
         Hinv_g = _take(blocks.Hll_inv, pk.p_lm, pk.p_plan)
         if blocks.Bp.dtype == torch.bfloat16:
-            Hinv_g = Hinv_g.to(torch.bfloat16).float()
-        corr = torch.einsum("pkij,pkjl,pkml->pim", Bp, Hinv_g, Bp)
+            Hinv_g = Hinv_g.to(torch.bfloat16)
+        corr = torch.einsum("pkij,pkjl,pkml->pim", Bp, Hinv_g.double(), Bp)
     else:
         idxT = pk.p_lm.T  # [K, NP]
-        a = blocks.Hll_inv[:, 0, 0][idxT]
-        b = blocks.Hll_inv[:, 0, 1][idxT]
-        d = blocks.Hll_inv[:, 1, 1][idxT]
+        Hinv = blocks.Hll_inv.double()
+        a = Hinv[:, 0, 0][idxT]
+        b = Hinv[:, 0, 1][idxT]
+        d = Hinv[:, 1, 1][idxT]
         BT = Bp.permute(1, 2, 3, 0)  # [K, 3, 2, NP]
         # u_j = Hll_inv @ B's j-th row per slot; corr_im = sum_k B_i . u_m
         rows = []
@@ -292,8 +301,8 @@ def packed_s_diag(blocks: PackedBlocks, pk: PackedEdges, mesh=None) -> torch.Ten
                 comps[m][i] = comps[i][m]
         corr = torch.stack([torch.stack(r, dim=-1) for r in comps], dim=-2)
     if mesh is not None:
-        corr = mesh.psum(corr)
-    return blocks.Hpp_diag - corr
+        corr = mesh.psum(corr.float())
+    return (blocks.Hpp_diag.double() - corr).float()
 
 
 def _chain_band(blocks: PackedBlocks, pk: PackedEdges, NP_: int, mesh=None) -> torch.Tensor:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import sys
 import time
 from typing import Callable, NamedTuple
@@ -31,6 +32,23 @@ PORT_KERNELS = ("chol_solve_kernel", "band_solve_kernel", "schur_w_kernel", "sch
 # H100 a session can come back with no device event at all (once in 20
 # sessions; short sessions after long ones; a one-operator session)
 SESSIONS = 3
+# the profiled call's range on the host's side of the profiler's timeline
+WINDOW = "boslam_torch::profiled_call"
+# CUDA API events (cudaLaunchKernel, cuLaunchKernel, cudaMemcpyAsync, ...):
+# their correlation ids number the API calls in the order they are made,
+# and a device operation carries its launch's
+_RUNTIME = re.compile(r"cu(da)?[A-Z]")
+# the kernel of ``torch.cuda._sleep``, which marks the call's start and end
+# on the card (``_profile_once``); nothing else in the port runs it
+MARK = "spin_kernel"
+# marks launched before the call: on the H100 a session after a process's
+# first can lose the device records of its first kernels (their launch
+# events stay), up to 94 of them late in chip_smoke.py's long process, all
+# of a short session's (and at times its last ones, the end mark among
+# them: the session is then taken again; tools/port_trace_probe.py counts
+# them).  The marks take the leading loss, and the earliest that survives
+# marks the call's start on the device
+START_MARKS = 512
 
 
 @contextlib.contextmanager
@@ -93,12 +111,20 @@ def sync(dev: torch.device) -> None:
 
 class DeviceTrace(NamedTuple):
     """One profiled call.  ``kernels``: {name: (ms, launches)} of the
-    device's operations; ``busy_ms`` their summed time; ``span_ms`` first
-    start to last end; ``n_ops`` their count; ``wall_ms`` the host clock
-    around the call and its wait for the card; ``planes`` where they ran
-    (CUDA streams, or CPU threads on the CPU); ``n_host_threads`` the host
-    threads that recorded operators (0 on the CPU, whose threads are the
-    planes)."""
+    device's operations that the call launched; ``busy_ms`` their summed
+    time; ``span_ms`` first start to last end; ``n_ops`` their count;
+    ``wall_ms`` the host clock around the call and its wait for the card;
+    ``planes`` where they ran (CUDA streams, or CPU threads on the CPU);
+    ``n_host_threads`` the host threads that recorded operators (0 on the
+    CPU, whose threads are the planes); ``window_ms`` the call on the clock
+    its operations are read on: on the card from the start of the mark
+    launched before it to the end of the one launched after it, on the CPU
+    the ``record_function`` range; ``host_window_ms`` that range, the call
+    and its wait for the card on the host's side of the profiler's
+    timeline; ``n_ops_outside`` the session's device operations that the
+    call did not launch, left out of all the above; ``timeline`` where they
+    lie (``_timeline``); ``sessions`` the profiler sessions taken, 1 unless
+    a session recorded no device operation of the call."""
     kernels: dict
     busy_ms: float
     span_ms: float
@@ -106,13 +132,23 @@ class DeviceTrace(NamedTuple):
     wall_ms: float
     planes: list
     n_host_threads: int
+    window_ms: float
+    host_window_ms: float
+    n_ops_outside: int
+    timeline: dict
+    sessions: int
 
 
 def _profile_once(fn: Callable, dev: torch.device):
-    """(events, wall ms) of one profiled call of ``fn``.  ``fn`` runs under
-    the caller's sync-debug mode; the profiler and the wait for the card run
+    """(events, wall ms) of one profiled call of ``fn``.  ``fn()`` and the
+    wait for the card after it run inside a ``record_function`` range named
+    ``WINDOW``; on the card ``MARK`` kernels are launched right before
+    ``fn()`` (``START_MARKS``) and right after it (one): the call's
+    launches lie between theirs in correlation order, and their device
+    times bound the call on the device's clock.  ``fn`` runs under the
+    caller's sync-debug mode; the profiler and the wait for the card run
     with it lifted."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = dev.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -129,54 +165,138 @@ def _profile_once(fn: Callable, dev: torch.device):
             torch.cuda.set_sync_debug_mode(mode)
         try:
             t0 = time.perf_counter()
-            fn()
+            with record_function(WINDOW):
+                for _ in range(START_MARKS if cuda else 0):
+                    torch.cuda._sleep(0)
+                fn()
+                if cuda:
+                    torch.cuda._sleep(0)
+                sync(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
         finally:
             if cuda:
                 torch.cuda.set_sync_debug_mode(0)
-        sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
     return list(prof.events()), wall_ms
+
+
+def _device_ops(events, cuda: bool):
+    """The device's operations among ``events``, each (event, plane, time
+    us), and the host window (start, end) in us, or None where the session
+    did not record it.  On the card, every CUDA event but the window's own
+    annotation; on the CPU, the operators' self times on the host threads."""
+    cpu = torch.autograd.DeviceType.CPU
+    window = next(((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == WINDOW and e.device_type == cpu), None)
+    if cuda:
+        ops = [(e, f"cuda:{e.device_index} stream {e.device_resource_id}",
+                e.time_range.elapsed_us()) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.name != WINDOW]
+    else:
+        ops = [(e, f"cpu thread {e.thread}", e.self_cpu_time_total) for e in events
+               if e.device_type == cpu and not e.is_async and e.name != WINDOW]
+    return ops, window
+
+
+def _launched_by_call(ops, events, window, cuda: bool):
+    """(the first and last mark recorded, which of ``ops`` the call
+    launched), or None where the session lacks what decides it.  On the
+    card the call's operations are those whose correlation id lies after
+    the first API call made in the host window (the first start mark's
+    launch, whose device record may be lost) and before the end mark's;
+    the host's clock only places that first call, the order is CUPTI's.
+    A start mark and the end mark must be recorded.  On the
+    CPU, where operators are events on the host's one clock, the call's
+    are those that start in the window."""
+    lo, hi = window
+    if not cuda:
+        return [], [lo <= e.time_range.start <= hi for e, _, _ in ops]
+    cpu = torch.autograd.DeviceType.CPU
+    first = min((e.id for e in events if e.device_type == cpu and _RUNTIME.match(e.name)
+                 and lo <= e.time_range.start <= hi), default=None)
+    marks = sorted((e for e, _, _ in ops if MARK in e.name and first is not None
+                    and e.id >= first), key=lambda e: e.id)
+    if len(marks) < 2:
+        return None
+    end = marks[-1].id
+    return [marks[0], marks[-1]], [first <= e.id < end and MARK not in e.name
+                                   for e, _, _ in ops]
+
+
+def _timeline(ops, own, window, marks) -> dict:
+    """Where the session's device operations lie, in ms from the host
+    window's start on the profiler's timeline: ``window`` [0, its end];
+    ``device_window`` the first mark's start and the second's end (None on
+    the CPU); ``own`` the call's first start and last end; ``all`` the same
+    over every device operation of the session; ``outside`` {name: count}
+    of those the call did not launch, the marks left out."""
+    lo, hi = window
+
+    def ends(sel):
+        sel = list(sel)
+        if not sel:
+            return None
+        return [(min(e.time_range.start for e in sel) - lo) / 1e3,
+                (max(e.time_range.end for e in sel) - lo) / 1e3]
+
+    outside = {}
+    for (e, _, _), mine in zip(ops, own):
+        if not mine and MARK not in e.name:
+            outside[e.name[:60]] = outside.get(e.name[:60], 0) + 1
+    return {"window": [0.0, (hi - lo) / 1e3], "device_window": ends(marks),
+            "own": ends(e for (e, _, _), m in zip(ops, own) if m),
+            "all": ends(e for e, _, _ in ops), "outside": outside}
 
 
 def device_time_by_kernel(fn: Callable, device=None) -> DeviceTrace:
     """Device time by kernel of one call of ``fn`` under ``torch.profiler``.
 
     On a CUDA ``device`` (the default) the device's operations are the
-    CUDA events (kernels, copies, sets); on one stream they do not
-    overlap, so busy <= span <= wall.  On the CPU they are the operators'
-    self times on the host threads.  A session that records no device
-    operation is taken again, ``SESSIONS`` times in all, each running
-    ``fn`` once more; after that this raises ``RuntimeError``: an empty
-    trace is no measurement."""
+    CUDA events (kernels, copies, sets) that the call launched
+    (``_launched_by_call``); on one stream they do not overlap and run
+    between the marks, so busy <= span <= window, all read on the device's
+    clock.  On the CPU they are the operators' self times on the host
+    threads inside the call.  A session that records no device operation
+    of the call (on the card: or no start mark, or not the end mark) is
+    taken again, ``SESSIONS`` times in all, each running ``fn`` once more;
+    after that this raises ``RuntimeError``: an empty trace is no
+    measurement."""
     dev = resolve_device(device)
-    cpu_type = torch.autograd.DeviceType.CPU
+    cuda = dev.type == "cuda"
     for attempt in range(1, SESSIONS + 1):
         events, wall_ms = _profile_once(fn, dev)
-        if dev.type == "cuda":
-            ops = [(e.name, e.time_range.start, e.time_range.end, e.time_range.elapsed_us(),
-                    f"cuda:{e.device_index} stream {e.device_resource_id}")
-                   for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-            host = {e.thread for e in events if e.device_type == cpu_type}
-        else:
-            ops = [(e.name, e.time_range.start, e.time_range.end, e.self_cpu_time_total,
-                    f"cpu thread {e.thread}") for e in events
-                   if e.device_type == cpu_type and not e.is_async]
-            host = set()
-        if ops:
+        ops, window = _device_ops(events, cuda)
+        split = _launched_by_call(ops, events, window, cuda) if window is not None else None
+        if split is not None and any(split[1]):
+            marks, own = split
             break
+        ids = [e.id for e, _, _ in ops]
         print(f"device_time_by_kernel: session {attempt} of {SESSIONS} recorded no device "
-              f"operation", file=sys.stderr)
+              f"operation of the call ({len(ops)} in all, correlation ids "
+              f"{min(ids, default=None)}-{max(ids, default=None)}, marks at "
+              f"{[e.id for e, _, _ in ops if MARK in e.name]})", file=sys.stderr)
     else:
         raise RuntimeError(f"device_time_by_kernel: {SESSIONS} profiler sessions on {dev} "
                            f"recorded no device operation")
+    mine = [o for o, m in zip(ops, own) if m]
+    n_outside = sum(not m and MARK not in e.name for (e, _, _), m in zip(ops, own))
+    timeline = _timeline(ops, own, window, marks)
+    if n_outside:
+        print(f"device_time_by_kernel: {n_outside} device operations outside the call: "
+              f"{timeline['outside']}", file=sys.stderr)
     kernels = {}
-    for name, _, _, us, _ in ops:
-        ms, n = kernels.get(name, (0.0, 0))
-        kernels[name] = (ms + us / 1e3, n + 1)
-    span_us = max(o[2] for o in ops) - min(o[1] for o in ops)
-    return DeviceTrace(kernels=kernels, busy_ms=sum(o[3] for o in ops) / 1e3,
-                       span_ms=span_us / 1e3, n_ops=len(ops), wall_ms=wall_ms,
-                       planes=sorted({o[4] for o in ops}), n_host_threads=len(host))
+    for e, _, us in mine:
+        ms, n = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (ms + us / 1e3, n + 1)
+    span_us = max(e.time_range.end for e, _, _ in mine) - min(e.time_range.start for e, _, _ in mine)
+    window_us = (marks[1].time_range.end - marks[0].time_range.start if marks
+                 else window[1] - window[0])
+    cpu = torch.autograd.DeviceType.CPU
+    host = {e.thread for e in events if e.device_type == cpu} if cuda else set()
+    return DeviceTrace(kernels=kernels, busy_ms=sum(us for _, _, us in mine) / 1e3,
+                       span_ms=span_us / 1e3, n_ops=len(mine), wall_ms=wall_ms,
+                       planes=sorted({p for _, p, _ in mine}), n_host_threads=len(host),
+                       window_ms=window_us / 1e3, host_window_ms=(window[1] - window[0]) / 1e3,
+                       n_ops_outside=n_outside, timeline=timeline, sessions=attempt)
 
 
 def port_launches(tr: DeviceTrace, names=PORT_KERNELS) -> tuple[int, float]:
@@ -215,7 +335,7 @@ def profile_path(solve: Callable, g, cfg, iters: int = 5, top: int = 8) -> dict:
     ranked = sorted(tr.kernels.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(
         iters=iters, wall_ms_per_iter=tr.wall_ms / iters, wall_ms_per_iter_unprofiled=warm_ms / iters,
-        device_busy_ms_per_iter=tr.busy_ms / iters, device_busy_share=tr.busy_ms / tr.wall_ms,
+        device_busy_ms_per_iter=tr.busy_ms / iters, device_busy_share=tr.busy_ms / tr.window_ms,
         device_ops_per_iter=tr.n_ops / iters,
         top=[[name[:60], round(v[0] / iters, 4)] for name, v in ranked],
     )

@@ -3,8 +3,8 @@ JAX package on the CPU.
 
 ``total_cost`` is host f64 numpy in both packages: held at rel 1e-9 on the
 same inputs.  ``coarse_correct``'s cost trace at rel 1e-5 and its step
-choices exactly: each round re-triangulates the landmarks in f32, each
-package its own way.  The properties (cost cut, monotone trace, the fixed
+choices exactly: each round re-triangulates the landmarks, each package
+its own way (the JAX package sums and solves in f32, the port in f64).  The properties (cost cut, monotone trace, the fixed
 pose kept, a second application no worse) as tests/test_coarse.py:43-76.
 """
 

@@ -157,7 +157,9 @@ def test_schur_solve_bits_unchanged(cuda):
 
 
 def _graph(n_poses, n_landmarks, device, loop_closures=0):
-    """Built on the CPU (the triangulation sums with atomics on the card)."""
+    """Built on the CPU and moved to ``device``: every test starts from the
+    CPU's bits (a build on the card gives the same graph, its landmarks
+    within one f32 ulp: test_build_graph_on_the_card_matches_the_cpu)."""
     from boslam_torch.graph.build import build_graph
     from boslam_torch.synth import generate_sequence
 
@@ -652,3 +654,90 @@ def test_cholesky_rule_on_the_card(cuda):
     delta, ok = GN.solve_gauge_fixed(H, torch.ones(1280, device=cuda), mask)
     assert chol.cholesky_solve_padded.launches == before and bool(ok)
     torch.testing.assert_close(delta, -torch.ones(1280, device=cuda))
+
+
+def _past_one_ulp(a, b):
+    """Coordinates of f32 ``a`` more than one f32 ulp from ``b`` (on the CPU)."""
+    a, b = a.cpu(), b.cpu()
+    inf = torch.tensor(float("inf"))
+    return int(((a < torch.nextafter(b, -inf)) | (a > torch.nextafter(b, inf))).sum())
+
+
+def _survey_graph():
+    """chip_smoke.SURVEY's graph, built on the CPU: a 10k-pose walk with 100
+    loop closures, and its pose-graph init (2 landmark rounds)."""
+    import logging
+
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.init.pose_graph import pgo_initialize
+    from boslam_torch.synth import generate_sequence
+
+    logging.getLogger("boslam_torch.init").setLevel(logging.ERROR)
+    ig, _ = generate_sequence(10000, 3900, seed=3, loop_closures=100)
+    g, _ = build_graph(ig, init="triangulate", device="cpu")
+    return ig, g, pgo_initialize(g, landmark_rounds=2)
+
+
+def test_triangulation_on_the_card_matches_the_cpu(cuda):
+    """The f64 triangulation on the card against the CPU's, on the survey
+    graph at its built poses and at its pose-graph init's: within one f32
+    ulp per coordinate, three runs on the card."""
+    from boslam_torch.init.triangulation import triangulate_landmarks
+
+    _, g, gp = _survey_graph()
+    for poses in (g.poses, gp.poses):
+        args = (poses, g.b_pose, g.b_lm, g.b_meas)
+        want = triangulate_landmarks(*args, n_landmarks=g.n_landmarks)
+        for _ in range(3):
+            got = triangulate_landmarks(*(t.to(cuda) for t in args), n_landmarks=g.n_landmarks)
+            assert got.dtype == torch.float32 and _past_one_ulp(got, want) == 0
+
+
+@pytest.mark.parametrize("size", ["301-141", "survey"])
+def test_build_graph_on_the_card_matches_the_cpu(cuda, size):
+    """``build_graph(init="triangulate")`` on the card: every field the CPU
+    build's, the landmarks within one f32 ulp."""
+    import dataclasses
+
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.synth import generate_sequence
+
+    if size == "survey":
+        ig, _, _ = _survey_graph()
+    else:
+        ig, _ = generate_sequence(301, 141, seed=3)
+    g, _ = build_graph(ig, init="triangulate")
+    g_cpu, _ = build_graph(ig, init="triangulate", device="cpu")
+    assert g.device.type == "cuda"
+    for f in dataclasses.fields(g):
+        if f.name != "landmarks":
+            assert torch.equal(getattr(g, f.name).cpu(), getattr(g_cpu, f.name)), f.name
+    assert _past_one_ulp(g.landmarks, g_cpu.landmarks) == 0
+
+
+def test_profiled_session_counts_only_its_own_launches(cuda):
+    """A profiler session right after several unprofiled runs of the whole
+    step (left in flight): the trace counts the profiled call's 8 launches
+    per step and no more, busy <= span, and the span fits the call's window
+    on the profiler's timeline (chip_smoke.CLOCK_RTOL)."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver.optimizer import gn_step
+    from boslam_torch.solver.schur import kernel_band
+    from boslam_torch.utils import profiling
+
+    g = _graph(301, 141, cuda)
+    cfg = SolverConfig(linear_solver="schur")
+    band = kernel_band(g, cfg)
+
+    def chain(n):
+        h = g
+        for _ in range(n):
+            h, _ = gn_step(h, cfg, band)
+        return h
+
+    for _ in range(4):
+        chain(5)  # no wait for the card
+    tr = profiling.device_time_by_kernel(lambda: chain(5), cuda)
+    assert profiling.port_launches(tr)[0] == 8 * 5
+    assert tr.timeline["own"] is not None and tr.n_ops > 8 * 5
+    assert 0 < tr.busy_ms <= tr.span_ms <= tr.window_ms * (1 + 1e-3)

@@ -102,6 +102,7 @@ def test_trace_validate_keys(trace_records):
         assert rec["xla_cost_analysis"] is None and rec["model_vs_xla"] is None
         tr = rec["trace"]
         assert 0 < tr["device_time_ms"] <= tr["device_span_ms"] <= tr["profiled_wall_ms"], name
+        assert tr["device_span_ms"] <= tr["window_ms"] and tr["n_ops_outside"] == 0, name
         assert tr["port_kernel_launches"] == 0 and rec["route"] == "plain", name  # the CPU
         assert np.isfinite(rec["chi2_final"]) and rec["ms_per_iter"] > 0
     assert trace_records["packed"]["iters"] == 5  # max(5, iters // 3), as the JAX tool
@@ -155,9 +156,112 @@ def _ops():
 def test_device_time_by_kernel_on_cpu():
     tr = profiling.device_time_by_kernel(_ops, "cpu")
     assert 0 < tr.busy_ms <= tr.span_ms <= tr.wall_ms
+    assert tr.span_ms <= tr.window_ms and tr.n_ops_outside == 0
     assert tr.kernels["aten::mm"][1] == 5 and tr.n_ops >= 10
     assert tr.planes and all(p.startswith("cpu thread") for p in tr.planes)
     assert profiling.port_launches(tr) == (0, 0)
+
+
+def test_window_leaves_out_ops_outside_the_call(monkeypatch):
+    """Operators the session records before and after the profiled call's
+    window (run around its record_function range) are not counted: the
+    call's operators are those of a session without them, each counted
+    once, and busy <= span <= window_ms."""
+    import contextlib
+
+    want = profiling.device_time_by_kernel(_ops, "cpu")
+    real = torch.profiler.record_function
+
+    @contextlib.contextmanager
+    def around(name):
+        torch.ones(8).sin()
+        with real(name):
+            yield
+        torch.ones(8).cos()
+
+    monkeypatch.setattr(torch.profiler, "record_function", around)
+    tr = profiling.device_time_by_kernel(_ops, "cpu")
+    assert {k: n for k, (_, n) in tr.kernels.items()} == {k: n for k, (_, n) in want.kernels.items()}
+    assert tr.n_ops == want.n_ops and tr.n_ops_outside >= 2
+    assert {"aten::sin", "aten::cos"} <= set(tr.timeline["outside"])
+    assert 0 < tr.busy_ms <= tr.span_ms <= tr.window_ms
+    lo, hi = tr.timeline["own"]
+    assert 0 <= lo <= hi <= tr.window_ms and tr.timeline["all"][0] < 0 < tr.window_ms < tr.timeline["all"][1]
+
+
+def _event(eid, name, t0, t1, cuda=True):
+    from types import SimpleNamespace
+
+    kind = torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
+    tr = SimpleNamespace(start=t0, end=t1, elapsed_us=lambda: t1 - t0)
+    return SimpleNamespace(id=eid, name=name, time_range=tr, device_type=kind, device_index=0,
+                           device_resource_id=7, thread=1, is_async=False)
+
+
+@pytest.mark.parametrize("lost", [0, 1, 3])
+def test_card_call_is_read_by_correlation_order(lost):
+    """The card's reading of a session (fake events): the call's operations
+    are those between its first launch in the host window and its end
+    mark, in correlation order, whatever their device times; a stray
+    operation from before the session and the lost device records of the
+    first start marks change nothing; the window runs from the first mark
+    recorded to the end mark.  With every start mark lost, or the end mark,
+    the session counts as empty."""
+    mark = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+    host = [_event(profiling.WINDOW, profiling.WINDOW, 100.0, 900.0, cuda=False)]
+    host[0].id = 1
+    host += [_event(10, "cudaLaunchKernel", 50.0, 51.0, cuda=False)]  # before the window
+    dev = [_event(10, "stray_kernel", 95.0, 99.0)]  # its kernel, recorded in this session
+    t, eid = 110.0, 20
+    for k in range(profiling.START_MARKS):
+        host.append(_event(eid, "cudaLaunchKernel", t, t + 1, cuda=False))
+        if k >= lost:
+            dev.append(_event(eid, mark, t + 5, t + 6))
+        t, eid = t + 10, eid + 3
+    for name in ("a_kernel", "b_kernel", "a_kernel"):
+        host.append(_event(eid, "cudaLaunchKernel", t, t + 1, cuda=False))
+        dev.append(_event(eid, name, t - 30, t - 20))  # the device's clock runs behind
+        t, eid = t + 10, eid + 3
+    host.append(_event(eid, "cudaLaunchKernel", t, t + 1, cuda=False))
+    dev.append(_event(eid, mark, t + 5, t + 6))
+    ops, window = profiling._device_ops(host + dev, True)
+    assert window == (100.0, 900.0) and len(ops) == len(dev)
+    marks, own = profiling._launched_by_call(ops, host + dev, window, True)
+    assert [e.name for (e, _, _), m in zip(ops, own) if m] == ["a_kernel", "b_kernel", "a_kernel"]
+    assert marks[0].id == 20 + 3 * lost and marks[1].name == mark and marks[1].id == eid
+    tl = profiling._timeline(ops, own, window, marks)
+    assert tl["outside"] == {"stray_kernel": 1} and tl["device_window"][0] > 0
+    no_end = profiling._launched_by_call(ops[:-1], host + dev, window, True)
+    assert not any(no_end[1])
+    first_marks = [o for o in ops if o[0].name == mark][:-1]
+    rest = [o for o in ops if o not in first_marks]
+    assert profiling._launched_by_call(rest, host + dev, window, True) is None
+
+
+def test_trace_probe_session_record():
+    """``tools/port_trace_probe.session_record`` on a fake card session: of
+    six launches in the host range the first two and the last lost their
+    device records, one record starts 30 us before its launch, one ends
+    40 us after the range, and a record of a launch before the range is
+    stray; API calls that make no device record are not launches."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("port_trace_probe",
+                                                  os.path.join(TOOLS, "port_trace_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    host = [_event(5, "cudaLaunchKernel", 50.0, 51.0, cuda=False),
+            _event(6, "cudaGetDevice", 120.0, 121.0, cuda=False)]
+    dev = [_event(5, "before_kernel", 60.0, 70.0)]
+    for k, eid in enumerate(range(10, 16)):
+        t = 200.0 + 100.0 * k
+        host.append(_event(eid, "cudaMemcpyAsync" if k == 3 else "cudaLaunchKernel", t, t + 1,
+                           cuda=False))
+        if 2 <= k <= 4:
+            dev.append(_event(eid, f"op{k}", t - 30.0 if k == 2 else t + 5, 940.0 if k == 4 else t + 9))
+    rec = probe.session_record(host + dev, (100.0, 900.0))
+    assert rec == {"launches": 6, "lost": 3, "lost_first": 2, "lost_last": 1, "early_ms": 0.03,
+                   "late_ms": 0.04, "stray": 1}
 
 
 @pytest.mark.parametrize("empty", [0, 1, 2, 3])

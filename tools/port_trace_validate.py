@@ -10,7 +10,15 @@ counted, and ``xla_cost_analysis`` and ``model_vs_xla`` are null in every
 record.  The trace half ports: one ``torch.profiler`` run of the chain
 (``utils/profiling.device_time_by_kernel``) gives the device time by
 kernel, its sum (busy), the span from the first kernel's start to the last
-one's end, and the number of device operations.
+one's end, and the number of device operations, counting only those the
+chain launched; beside them the chain's window on the clock its
+operations are read on (``trace.window_ms``: on the card from a mark
+launched before the chain to one launched after it), the same window on
+the host's side of the profiler's timeline (``trace.host_window_ms``: the
+chain and its wait for the card, a ``record_function`` range), the
+session's device operations the chain did not launch
+(``trace.n_ops_outside``) and where all of them lie (``trace.timeline_ms``).
+``profiled_wall_ms`` is the host's ``perf_counter`` around the same call.
 
 Paths:
   dense   GN, linear_solver="dense": the Cholesky kernel, one launch per step
@@ -203,6 +211,10 @@ def trace_record(tr, iters, best_s):
         "port_kernel_launches": launches,
         "port_kernel_ms": ms,
         "profiled_wall_ms": tr.wall_ms,
+        "window_ms": tr.window_ms,
+        "host_window_ms": tr.host_window_ms,
+        "n_ops_outside": tr.n_ops_outside,
+        "timeline_ms": tr.timeline,
     }
     vs_wall = {
         "wall_ms": 1e3 * best_s,
