@@ -9,7 +9,11 @@ through their plain PyTorch versions on the CPU.  ``solve_packed`` is the
 dual-packed Schur+PCG scale path.
 """
 
-import torch as _torch
+import time as _time
+
+_T0 = _time.perf_counter_ns()
+
+import torch as _torch  # noqa: E402
 
 # Least-squares solving is precision-critical: the normal matrix has a
 # condition number of about 1e7, and reduced-precision (TF32) products
@@ -18,6 +22,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
+from boslam_torch.utils import spans as _spans  # noqa: E402
 from boslam_torch.config import SolverConfig  # noqa: E402
 from boslam_torch.graph.build import build_graph  # noqa: E402
 from boslam_torch.graph.data import FactorGraph, GraphMeta  # noqa: E402
@@ -36,3 +41,8 @@ __all__ = [
     "solve",
     "solve_packed",
 ]
+
+# the import root, from this file's first line to its last: opened here,
+# backdated, so that no span is left open should an import above fail
+with _spans.span("import", start_ns=_T0):
+    pass

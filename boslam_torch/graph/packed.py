@@ -29,6 +29,7 @@ import torch
 from boslam_torch.device import resolve_device
 from boslam_torch.graph.data import FactorGraph
 from boslam_torch.ops.windowed_gather import WindowPlan, plan_windows
+from boslam_torch.utils.spans import span
 
 _GRIDS = ("p_lm", "p_meas", "p_omega", "l_pose", "l_meas", "l_omega")
 
@@ -192,8 +193,9 @@ def pack_edges(g: FactorGraph, windows: bool = False,
     dev = g.device
     p_plan = l_plan = None
     if windows:
-        p_plan = plan_windows(p_lm, p_omega > 0, NL, device=dev)
-        l_plan = plan_windows(l_pose, l_omega > 0, NP_, device=dev)
+        with span("plan_windows"):
+            p_plan = plan_windows(p_lm, p_omega > 0, NL, device=dev)
+            l_plan = plan_windows(l_pose, l_omega > 0, NP_, device=dev)
 
     def on_dev(a):
         return torch.as_tensor(a, device=dev)

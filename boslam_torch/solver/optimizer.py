@@ -26,6 +26,7 @@ from boslam_torch.graph.data import FactorGraph
 from boslam_torch.solver import gauss_newton as GN
 from boslam_torch.solver.normal_eq import chi2_stats, edge_terms
 from boslam_torch.solver.robust import robust_cost
+from boslam_torch.utils.spans import count, span
 
 
 def _check_ported(cfg: SolverConfig) -> None:
@@ -170,9 +171,10 @@ def solve(graph: FactorGraph, cfg: SolverConfig, lam0: float | None = None):
 
     ``lam0`` restores the LM damping (ignored under GN).
     """
-    lam = torch.full((), cfg.lm_lambda0 if lam0 is None else lam0,
-                     dtype=graph.poses.dtype, device=graph.device)
-    return solve_loop(graph, cfg, lam0=lam)
+    with span("solve"):
+        lam = torch.full((), cfg.lm_lambda0 if lam0 is None else lam0,
+                         dtype=graph.poses.dtype, device=graph.device)
+        return solve_loop(graph, cfg, lam0=lam)
 
 
 def packed_solve_loop(graph: FactorGraph, pk, cfg: SolverConfig, lam0: torch.Tensor | None = None,
@@ -200,10 +202,12 @@ def packed_solve_loop(graph: FactorGraph, pk, cfg: SolverConfig, lam0: torch.Ten
     g, per_iter = graph, []
     for i in range(cfg.iters):
         kt = cfg.kt_at(start_iter + i)
-        if cfg.optimizer == "gn":
-            g, stats, dp = packed_gn_step(g, pk, cfg, dp, kt=kt, mesh=mesh)
-        else:
-            g, lam, stats, dp = packed_lm_step(g, pk, cfg, lam, dp, kt=kt, mesh=mesh)
+        with span("step"):
+            count("gn.outers")
+            if cfg.optimizer == "gn":
+                g, stats, dp = packed_gn_step(g, pk, cfg, dp, kt=kt, mesh=mesh)
+            else:
+                g, lam, stats, dp = packed_lm_step(g, pk, cfg, lam, dp, kt=kt, mesh=mesh)
         per_iter.append(stats)
     stats = _stack(per_iter)
     stats["dp_final"] = dp
@@ -222,7 +226,8 @@ def solve_packed(graph: FactorGraph, cfg: SolverConfig, lam0: float | None = Non
     plans windowed gathers for both slot grids and unmaps the landmark
     order on the way out; "auto" and "take" gather plainly.  ``lam0``
     restores the LM damping, ``dp0`` the warm-start delta, ``start_iter``
-    the GNC schedule's offset.
+    the GNC schedule's offset.  The solve is the span "solve_packed", with
+    "pack" (the host packing) and a "step" per outer under it.
     """
     from boslam_torch.graph.packed import pack_edges
 
@@ -231,17 +236,20 @@ def solve_packed(graph: FactorGraph, cfg: SolverConfig, lam0: float | None = Non
     use_windows = cfg.gather == "windowed"
     dev, dtype = graph.device, graph.poses.dtype
     g_in, inv = graph, None
-    with host_sync(dev):
-        if use_windows:
-            from boslam_torch.graph.reorder import reorder_landmarks_by_pose
+    with span("solve_packed"):
+        with span("pack"), host_sync(dev):
+            if use_windows:
+                from boslam_torch.graph.reorder import reorder_landmarks_by_pose
 
-            g_in, _perm, inv_np = reorder_landmarks_by_pose(graph)
-            inv = torch.as_tensor(inv_np, device=dev)
-        pk, _meta = pack_edges(g_in, windows=use_windows, split_lm=cfg.lm_split)
-        if dp0 is not None:
-            dp0 = torch.as_tensor(dp0, dtype=dtype, device=dev)
-    lam = torch.full((), cfg.lm_lambda0 if lam0 is None else lam0, dtype=dtype, device=dev)
-    final, stats = packed_solve_loop(g_in, pk, cfg, lam0=lam, dp0=dp0, start_iter=start_iter)
-    if inv is not None:
-        final = graph.with_state(final.poses, final.landmarks[inv])
+                with span("reorder"):
+                    g_in, _perm, inv_np = reorder_landmarks_by_pose(graph)
+                    inv = torch.as_tensor(inv_np, device=dev)
+            pk, _meta = pack_edges(g_in, windows=use_windows, split_lm=cfg.lm_split)
+            if dp0 is not None:
+                dp0 = torch.as_tensor(dp0, dtype=dtype, device=dev)
+        lam = torch.full((), cfg.lm_lambda0 if lam0 is None else lam0, dtype=dtype, device=dev)
+        final, stats = packed_solve_loop(g_in, pk, cfg, lam0=lam, dp0=dp0,
+                                         start_iter=start_iter)
+        if inv is not None:
+            final = graph.with_state(final.poses, final.landmarks[inv])
     return final, stats

@@ -33,6 +33,7 @@ from boslam_torch.config import SolverConfig
 from boslam_torch.device import host_sync
 from boslam_torch.graph.data import FactorGraph
 from boslam_torch.solver.normal_eq import EdgeTerms, edge_terms
+from boslam_torch.utils.spans import count, span
 
 CG_POLL_EVERY = 4  # CG iterations between two host reads of the "still running" flag
 
@@ -198,10 +199,11 @@ def poll(flag: torch.Tensor, mesh=None) -> bool:
     Under a ``mesh`` the flag is first the maximum over the ranks, so that
     every rank takes the same branch (a rank that left the loop while
     another entered a collective would hang the group)."""
-    if mesh is not None:
-        flag = mesh.pmax(flag)
-    with host_sync(flag.device):
-        return bool(flag.item())
+    with span("poll"):
+        if mesh is not None:
+            flag = mesh.pmax(flag)
+        with host_sync(flag.device):
+            return bool(flag.item())
 
 
 def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int = 0,
@@ -357,7 +359,10 @@ def _flat_preconditioner(blocks: SchurBlocks, g: FactorGraph, cfg: SolverConfig,
 
 
 def cg_stats(n_iters, rel_res2, breakdown, info, device) -> dict:
-    """The CG stats of one solve, as device tensors."""
+    """The CG stats of one solve, as device tensors; the host counts are
+    also charged to the open root span as "cg.bodies" and "cg.polls"."""
+    count("cg.bodies", info["matvecs"])
+    count("cg.polls", info["polls"])
     return {
         "cg_iters": n_iters,
         "cg_rel_res2": rel_res2,

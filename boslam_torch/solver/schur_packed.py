@@ -22,6 +22,10 @@ per-vertex blocks and the CG vectors are replicated.  The build completes
 its sums with one psum call, and each CG matvec takes two psums (z before
 the Hll^-1 back-coupling, then the y partials).  Odometry then takes the
 general gather/segment-sum path: a shard's place in the chain is unknown.
+
+A step's phases are the spans "assemble" (blocks, reduced rhs,
+preconditioner), "pcg" and "update" (back-substitution, NaN guard, stats,
+then the step's boxplus: two ranges per step), under the caller's "step".
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from boslam_torch.solver.robust import robust_cost, robust_weights
 from boslam_torch.solver.schur import (
     _inv2x2, _inv3x3, _nan_guard, _pose_mask, _segment_sum, cg_stats, pcg,
 )
+from boslam_torch.utils.spans import span
 
 
 def _take(values: torch.Tensor, idx: torch.Tensor, plan: "WindowPlan | None"):
@@ -380,38 +385,42 @@ def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverCon
 
     ``x0`` warm-starts CG; ``kt`` overrides the robust threshold (GNC).
     """
-    blocks, stats = build_packed_blocks(g, pk, cfg, damping, kt, mesh)
-    mask = _pose_mask(g.n_poses, g.fixed_pose_ix, g.poses.dtype)
+    with span("assemble"):
+        blocks, stats = build_packed_blocks(g, pk, cfg, damping, kt, mesh)
+        mask = _pose_mask(g.n_poses, g.fixed_pose_ix, g.poses.dtype)
 
-    w0 = torch.einsum("lij,lj->li", blocks.Hll_inv, blocks.bl)
-    corr = _couple("pkij,pkj->pi", blocks.Bp, _take(w0, pk.p_lm, pk.p_plan))
-    if mesh is not None:
-        corr = mesh.psum(corr)
-    rhs = (-blocks.bp + corr) * mask
+        w0 = torch.einsum("lij,lj->li", blocks.Hll_inv, blocks.bl)
+        corr = _couple("pkij,pkj->pi", blocks.Bp, _take(w0, pk.p_lm, pk.p_plan))
+        if mesh is not None:
+            corr = mesh.psum(corr)
+        rhs = (-blocks.bp + corr) * mask
 
-    precond = _packed_preconditioner(blocks, pk, cfg, mask, mesh)
-    if x0 is not None:
-        x0 = x0 * mask
+        precond = _packed_preconditioner(blocks, pk, cfg, mask, mesh)
+        if x0 is not None:
+            x0 = x0 * mask
     # bf16 blocks put a ~2^-8 noise floor under the matvec: asking CG for
     # less only runs it to the cap, so the tolerance is clamped to it
     cg_tol = cfg.cg_tol
     if cfg.coupling_dtype == "bfloat16":
         cg_tol = max(cg_tol, BF16_CG_TOL_FLOOR)
-    dp, n_iters, rel_res2, breakdown, info = pcg(
-        lambda x: packed_s_matvec(blocks, pk, x, mask, row_chunk=cfg.matvec_row_chunk, mesh=mesh),
-        rhs, precond, cfg.cg_iters, cg_tol, x0, restarts=cfg.cg_restarts, mesh=mesh,
-    )
-    dp = dp * mask
+    with span("pcg"):
+        dp, n_iters, rel_res2, breakdown, info = pcg(
+            lambda x: packed_s_matvec(blocks, pk, x, mask, row_chunk=cfg.matvec_row_chunk,
+                                      mesh=mesh),
+            rhs, precond, cfg.cg_iters, cg_tol, x0, restarts=cfg.cg_restarts, mesh=mesh,
+        )
+    with span("update"):
+        dp = dp * mask
 
-    hlp_dp = _couple("lkij,lki->lj", blocks.Bl, _take(dp, pk.l_pose, pk.l_plan))
-    hlp_dp = _lm_rows_sum(hlp_dp, pk, blocks.Hll_inv.shape[0])
-    if mesh is not None:
-        hlp_dp = mesh.psum(hlp_dp)
-    dl = torch.einsum("lij,lj->li", blocks.Hll_inv, -blocks.bl - hlp_dp)
+        hlp_dp = _couple("lkij,lki->lj", blocks.Bl, _take(dp, pk.l_pose, pk.l_plan))
+        hlp_dp = _lm_rows_sum(hlp_dp, pk, blocks.Hll_inv.shape[0])
+        if mesh is not None:
+            hlp_dp = mesh.psum(hlp_dp)
+        dl = torch.einsum("lij,lj->li", blocks.Hll_inv, -blocks.bl - hlp_dp)
 
-    dp, dl, ok = _nan_guard(dp, dl)
-    stats.update(cg_stats(n_iters, rel_res2, breakdown, info, g.device))
-    stats["cg_tol_effective"] = torch.full((), cg_tol, dtype=torch.float32, device=g.device)
+        dp, dl, ok = _nan_guard(dp, dl)
+        stats.update(cg_stats(n_iters, rel_res2, breakdown, info, g.device))
+        stats["cg_tol_effective"] = torch.full((), cg_tol, dtype=torch.float32, device=g.device)
     return dp, dl, stats, ok
 
 
@@ -451,15 +460,16 @@ def packed_lm_step(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, lam, dp_p
     """
     x0 = dp_prev if cfg.cg_warm_start else None
     dp, dl, stats, ok = schur_packed_build_and_solve(g, pk, cfg, lam, x0, kt, mesh)
-    cand = g.with_state(*boxplus_state(g.poses, g.landmarks, dp, dl))
-    cost_new = packed_robust_total(cand, pk, cfg, kt, mesh)
-    accept = (cost_new < stats["chi2_robust"]) & ok
-    poses = torch.where(accept, cand.poses, g.poses)
-    landmarks = torch.where(accept, cand.landmarks, g.landmarks)
-    new_lam = torch.where(accept, torch.clamp(lam * cfg.lm_down, min=cfg.lm_lambda_min),
-                          torch.clamp(lam * cfg.lm_up, max=cfg.lm_lambda_max))
-    stats = _step_stats(stats, ok, accept, lam, kt, cfg, dp, dl, g.device)
-    dp_next = torch.where(accept, dp, torch.zeros_like(dp))
+    with span("update"):
+        cand = g.with_state(*boxplus_state(g.poses, g.landmarks, dp, dl))
+        cost_new = packed_robust_total(cand, pk, cfg, kt, mesh)
+        accept = (cost_new < stats["chi2_robust"]) & ok
+        poses = torch.where(accept, cand.poses, g.poses)
+        landmarks = torch.where(accept, cand.landmarks, g.landmarks)
+        new_lam = torch.where(accept, torch.clamp(lam * cfg.lm_down, min=cfg.lm_lambda_min),
+                              torch.clamp(lam * cfg.lm_up, max=cfg.lm_lambda_max))
+        stats = _step_stats(stats, ok, accept, lam, kt, cfg, dp, dl, g.device)
+        dp_next = torch.where(accept, dp, torch.zeros_like(dp))
     return g.with_state(poses, landmarks), new_lam, stats, dp_next
 
 
@@ -469,9 +479,10 @@ def packed_gn_step(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, dp_prev=N
     ``cfg.cg_warm_start`` CG starts from ``dp_prev``."""
     x0 = dp_prev if cfg.cg_warm_start else None
     dp, dl, stats, ok = schur_packed_build_and_solve(g, pk, cfg, cfg.damping, x0, kt, mesh)
-    poses, landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
-    dev = g.device
-    stats = _step_stats(stats, ok, torch.ones((), dtype=torch.bool, device=dev),
-                        torch.full((), cfg.damping, dtype=g.poses.dtype, device=dev), kt, cfg,
-                        dp, dl, dev)
+    with span("update"):
+        poses, landmarks = boxplus_state(g.poses, g.landmarks, dp, dl)
+        dev = g.device
+        stats = _step_stats(stats, ok, torch.ones((), dtype=torch.bool, device=dev),
+                            torch.full((), cfg.damping, dtype=g.poses.dtype, device=dev), kt,
+                            cfg, dp, dl, dev)
     return g.with_state(poses, landmarks), stats, dp

@@ -11,6 +11,7 @@ sync-debug mode "error".
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import os
 import re
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from boslam_torch.device import host_sync, resolve_device
+from boslam_torch.utils import spans
 
 TRACE_FILE = "boslam_torch_trace.json"
 # the port's kernels, by the names the profiler gives them
@@ -33,7 +35,7 @@ PORT_KERNELS = ("chol_solve_kernel", "band_solve_kernel", "schur_w_kernel", "sch
 # sessions; short sessions after long ones; a one-operator session)
 SESSIONS = 3
 # the profiled call's range on the host's side of the profiler's timeline
-WINDOW = "boslam_torch::profiled_call"
+WINDOW = spans.ANNOTATION + "profiled_call"
 # CUDA API events (cudaLaunchKernel, cuLaunchKernel, cudaMemcpyAsync, ...):
 # their correlation ids number the API calls in the order they are made,
 # and a device operation carries its launch's
@@ -55,7 +57,8 @@ START_MARKS = 512
 def trace(log_dir: str):
     """Profile the block with ``torch.profiler`` (CPU activity, and CUDA
     activity when a card is present) and write a Chrome trace,
-    ``log_dir/boslam_torch_trace.json`` (chrome://tracing or Perfetto).
+    ``log_dir/boslam_torch_trace.json`` (chrome://tracing or Perfetto),
+    with the program's spans on it as ``boslam_torch::<path>`` ranges.
     Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -63,7 +66,7 @@ def trace(log_dir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with spans.annotated(), profile(activities=activities) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
@@ -124,7 +127,9 @@ class DeviceTrace(NamedTuple):
     timeline; ``n_ops_outside`` the session's device operations that the
     call did not launch, left out of all the above; ``timeline`` where they
     lie (``_timeline``); ``sessions`` the profiler sessions taken, 1 unless
-    a session recorded no device operation of the call."""
+    a session recorded no device operation of the call; ``by_span``
+    {span path: (busy s, operations, idle s before them)} of the call's
+    operations by the program span that launched them (``_by_span``)."""
     kernels: dict
     busy_ms: float
     span_ms: float
@@ -137,6 +142,7 @@ class DeviceTrace(NamedTuple):
     n_ops_outside: int
     timeline: dict
     sessions: int
+    by_span: dict
 
 
 def _profile_once(fn: Callable, dev: torch.device):
@@ -183,17 +189,20 @@ def _device_ops(events, cuda: bool):
     """The device's operations among ``events``, each (event, plane, time
     us), and the host window (start, end) in us, or None where the session
     did not record it.  On the card, every CUDA event but the window's own
-    annotation; on the CPU, the operators' self times on the host threads."""
+    annotation and the program's spans; on the CPU, the operators' self
+    times on the host threads."""
     cpu = torch.autograd.DeviceType.CPU
     window = next(((e.time_range.start, e.time_range.end) for e in events
                    if e.name == WINDOW and e.device_type == cpu), None)
     if cuda:
         ops = [(e, f"cuda:{e.device_index} stream {e.device_resource_id}",
                 e.time_range.elapsed_us()) for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.name != WINDOW]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(spans.ANNOTATION)]
     else:
         ops = [(e, f"cpu thread {e.thread}", e.self_cpu_time_total) for e in events
-               if e.device_type == cpu and not e.is_async and e.name != WINDOW]
+               if e.device_type == cpu and not e.is_async
+               and not e.name.startswith(spans.ANNOTATION)]
     return ops, window
 
 
@@ -247,6 +256,50 @@ def _timeline(ops, own, window, marks) -> dict:
             "all": ends(e for e, _, _ in ops), "outside": outside}
 
 
+def _by_span(mine, events, lo: float, hi: float, cuda: bool) -> dict:
+    """{span path: (busy s, operations, idle s before them)} of the call's
+    operations ``mine``, each put down to the innermost program span
+    (``boslam_torch::<path>`` range on the host) that holds its launch:
+    on the card the API call with its correlation id, on the CPU its
+    start.  The device's idle time before an operation, from the end of
+    the last one before it (or the window's start ``lo``), goes to the
+    operation's span; the idle time after the last one, to the window's
+    end ``hi``, to "end of call".  Launches outside every span go to
+    "outside spans", operations without a launch record to "unmatched"."""
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name[len(spans.ANNOTATION):])
+                    for e in events if e.device_type == cpu and e.name != WINDOW
+                    and e.name.startswith(spans.ANNOTATION))
+    starts = [r[0] for r in ranges]
+
+    def innermost(t):
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0:
+            r_lo, r_hi, path = ranges[i]
+            if r_lo <= t <= r_hi:
+                return path
+            i -= 1
+        return "outside spans"
+
+    launch = {e.id: e.time_range.start for e in events
+              if e.device_type == cpu and _RUNTIME.match(e.name)}
+
+    def span_of(e):
+        if not cuda:
+            return innermost(e.time_range.start)
+        return innermost(launch[e.id]) if e.id in launch else "unmatched"
+
+    out, t = {}, lo
+    for e, _, us in sorted(mine, key=lambda o: o[0].time_range.start):
+        path = span_of(e)
+        busy, n, idle = out.get(path, (0.0, 0, 0.0))
+        out[path] = (busy + us / 1e6, n + 1, idle + max(0.0, e.time_range.start - t) / 1e6)
+        t = max(t, e.time_range.end)
+    if hi > t:
+        out["end of call"] = (0.0, 0, (hi - t) / 1e6)
+    return out
+
+
 def device_time_by_kernel(fn: Callable, device=None) -> DeviceTrace:
     """Device time by kernel of one call of ``fn`` under ``torch.profiler``.
 
@@ -259,11 +312,13 @@ def device_time_by_kernel(fn: Callable, device=None) -> DeviceTrace:
     of the call (on the card: or no start mark, or not the end mark) is
     taken again, ``SESSIONS`` times in all, each running ``fn`` once more;
     after that this raises ``RuntimeError``: an empty trace is no
-    measurement."""
+    measurement.  The program's spans are annotated during the call, and
+    ``by_span`` puts its operations and idle gaps down to them."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     for attempt in range(1, SESSIONS + 1):
-        events, wall_ms = _profile_once(fn, dev)
+        with spans.annotated():
+            events, wall_ms = _profile_once(fn, dev)
         ops, window = _device_ops(events, cuda)
         split = _launched_by_call(ops, events, window, cuda) if window is not None else None
         if split is not None and any(split[1]):
@@ -288,15 +343,15 @@ def device_time_by_kernel(fn: Callable, device=None) -> DeviceTrace:
         ms, n = kernels.get(e.name, (0.0, 0))
         kernels[e.name] = (ms + us / 1e3, n + 1)
     span_us = max(e.time_range.end for e, _, _ in mine) - min(e.time_range.start for e, _, _ in mine)
-    window_us = (marks[1].time_range.end - marks[0].time_range.start if marks
-                 else window[1] - window[0])
+    lo, hi = (marks[0].time_range.start, marks[1].time_range.end) if marks else window
     cpu = torch.autograd.DeviceType.CPU
     host = {e.thread for e in events if e.device_type == cpu} if cuda else set()
     return DeviceTrace(kernels=kernels, busy_ms=sum(us for _, _, us in mine) / 1e3,
                        span_ms=span_us / 1e3, n_ops=len(mine), wall_ms=wall_ms,
                        planes=sorted({p for _, p, _ in mine}), n_host_threads=len(host),
-                       window_ms=window_us / 1e3, host_window_ms=(window[1] - window[0]) / 1e3,
-                       n_ops_outside=n_outside, timeline=timeline, sessions=attempt)
+                       window_ms=(hi - lo) / 1e3, host_window_ms=(window[1] - window[0]) / 1e3,
+                       n_ops_outside=n_outside, timeline=timeline, sessions=attempt,
+                       by_span=_by_span(mine, events, lo, hi, cuda))
 
 
 def port_launches(tr: DeviceTrace, names=PORT_KERNELS) -> tuple[int, float]:

@@ -741,3 +741,42 @@ def test_profiled_session_counts_only_its_own_launches(cuda):
     assert profiling.port_launches(tr)[0] == 8 * 5
     assert tr.timeline["own"] is not None and tr.n_ops > 8 * 5
     assert 0 < tr.busy_ms <= tr.span_ms <= tr.window_ms * (1 + 1e-3)
+
+
+def test_spans_on_the_card(cuda):
+    """The program's spans on the card: a bare profiler session around a
+    packed solve holds no ``boslam_torch::`` event on either side and
+    ``device_time_by_kernel`` counts the device operations of a bare one; its
+    ``by_span`` puts every operation and idle gap down to a span, the idle
+    time summed by span equal to the window's within 1%."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver.optimizer import solve_packed
+    from boslam_torch.utils import profiling, spans
+
+    g = _graph(2000, 800, cuda)
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=3,
+                       cg_iters=40)
+
+    def run():
+        out, _ = solve_packed(g, cfg)
+        return out.poses.cpu()
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    assert not [e.name for e in prof.events() if e.name.startswith(spans.ANNOTATION)]
+    # the same call profiled bare through the same reader: as many operations
+    events, _ = profiling._profile_once(run, cuda)
+    assert not [e.name for e in events if e.name.startswith(spans.ANNOTATION)
+                and e.name != profiling.WINDOW]
+    ops, window = profiling._device_ops(events, True)
+    split = profiling._launched_by_call(ops, events, window, True)
+    tr = profiling.device_time_by_kernel(run, cuda)
+    assert split is not None and sum(split[1]) == tr.n_ops
+    assert sum(n for _, n, _ in tr.by_span.values()) == tr.n_ops
+    assert "unmatched" not in tr.by_span and tr.by_span["solve_packed/step/pcg"][1] > 0
+    idle = sum(i for _, _, i in tr.by_span.values()) * 1e3
+    assert idle == pytest.approx(tr.window_ms - tr.busy_ms, rel=1e-2)
