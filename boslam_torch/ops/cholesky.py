@@ -24,6 +24,7 @@ import re
 import torch
 
 from boslam_torch.ops import _build
+from boslam_torch.ops.counters import counter
 
 B = 128  # padding unit of the public functions (the JAX package's tile)
 TILE = 32  # tile of the blocked algorithm: chol::TILE in csrc/cholesky.cuh
@@ -188,7 +189,7 @@ def cholesky_solve_padded(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-cholesky_solve_padded.launches = 0
+counter(cholesky_solve_padded, "launches")
 
 
 def _lib():

@@ -37,6 +37,7 @@ import torch
 from boslam_torch.config import SolverConfig
 from boslam_torch.graph.data import FactorGraph, first_coupled
 from boslam_torch.ops import _build
+from boslam_torch.ops.counters import counter
 from boslam_torch.ops.cholesky import TILE, band_fits
 
 B = 128
@@ -334,8 +335,8 @@ def fused_gn_step(g: FactorGraph, cfg: SolverConfig, band_tiles: int | None = No
     return g.with_state(poses, landmarks), _stats(rows[0], cfg)
 
 
-fused_gn_step.launches = 0
-fused_gn_step.band_launches = 0  # those of .launches on the band route
+# .band_launches: those of .launches on the band route
+counter(fused_gn_step, "launches", "band_launches")
 
 
 def fused_gn_solve(g: FactorGraph, cfg: SolverConfig):

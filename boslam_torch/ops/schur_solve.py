@@ -43,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from boslam_torch.ops import _build
+from boslam_torch.ops.counters import counter
 from boslam_torch.ops.cholesky import TILE, band_fits, blocked_factor, blocked_substitute
 
 B = 128
@@ -146,8 +147,8 @@ def fused_schur_solve_blocks(Hpp, U, Hb, bp, bl, mask, damping, band_tiles=None)
     return x, dl
 
 
-fused_schur_solve_blocks.launches = 0
-fused_schur_solve_blocks.band_launches = 0  # those of .launches on the band route
+# .band_launches: those of .launches on the band route
+counter(fused_schur_solve_blocks, "launches", "band_launches")
 
 
 def fused_schur_solve_padded(Hpp, U, HllD, bp, bl, mask, damping):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from boslam_torch.ops import _build
+from boslam_torch.ops.counters import counter
 
 CHANNELS = (2, 3, 4)  # value widths the kernel takes
 
@@ -146,7 +147,7 @@ def windowed_take(values: torch.Tensor, idx: torch.Tensor, plan: WindowPlan) -> 
     return out
 
 
-windowed_take.launches = 0
+counter(windowed_take, "launches")
 
 
 def _lib():

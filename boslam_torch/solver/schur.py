@@ -32,10 +32,17 @@ import torch
 from boslam_torch.config import SolverConfig
 from boslam_torch.device import host_sync
 from boslam_torch.graph.data import FactorGraph
+from boslam_torch.ops import counters
 from boslam_torch.solver.normal_eq import EdgeTerms, edge_terms
 from boslam_torch.utils.spans import count, span
 
 CG_POLL_EVERY = 4  # CG iterations between two host reads of the "still running" flag
+# The least CG cap whose loop runs as a CUDA graph: a capture costs its host
+# about 2 ms more than the eager body it stands for, a replay about 1.5 ms
+# less (an H100 at 10k poses, tools/port_cg_graph_probe.py), so a loop of 2
+# bodies loses by the capture, 3 ties and 4 wins; once entered, the loop
+# runs min(cap, poll interval) bodies at least
+CG_GRAPH_MIN_ITERS = 4
 
 
 class SchurBlocks(NamedTuple):
@@ -206,17 +213,81 @@ def poll(flag: torch.Tensor, mesh=None) -> bool:
             return bool(flag.item())
 
 
+class CGState(NamedTuple):
+    """The state one CG body reads and writes: the iterate, residual,
+    preconditioned residual and direction f32[NP, 3], r^T z and r^T r, the
+    breakdown events and iterations so far, the best-residual iterate and
+    its r^T r, and ``active``, the loop condition as a device flag."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    rr: torch.Tensor
+    nbrk: torch.Tensor
+    k: torch.Tensor
+    x_best: torch.Tensor
+    rr_best: torch.Tensor
+    active: torch.Tensor
+
+
+# per device: the side stream the CG body is captured on, and the last
+# graph captured there, whose memory pool the next capture shares (so the
+# captures of successive solves reuse one pool rather than each reserving
+# its own; a pool lives while a graph that uses it does)
+_CAPTURE = {}
+
+
+class _GraphedBody:
+    """One CG body as a CUDA graph over fixed state buffers, which it reads
+    and writes in place (``out=``), so a replay needs no copy: captured at
+    the first call, from that call's state, and replayed at each call.  A
+    replay adds to the kernels' launch counters what an eager body adds;
+    the capture, which launched nothing, adds nothing."""
+
+    def __init__(self, body):
+        self.body = body
+        self.graph = self.state = self.launches = None
+
+    def __call__(self, s: CGState) -> CGState:
+        if self.graph is None:
+            self._capture(s)
+        self.graph.replay()
+        counters.add(self.launches)
+        return self.state
+
+    def _capture(self, s: CGState) -> None:
+        dev = s.x.device
+        stream, last = _CAPTURE.get(dev.index) or (torch.cuda.Stream(dev), None)
+        self.state = CGState(*(t.clone() for t in s))
+        self.graph = torch.cuda.CUDAGraph()
+        before = counters.read()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=None if last is None else last.pool(),
+                                     capture_error_mode="thread_local")
+            try:
+                self.body(self.state, out=self.state)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        _CAPTURE[dev.index] = (stream, self.graph)
+        self.launches = [a - b for a, b in zip(counters.read(), before)]
+        counters.add([-n for n in self.launches])
+
+
 def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int = 0,
-        poll_every: int = CG_POLL_EVERY, mesh=None, split: bool = False):
+        poll_every: int = CG_POLL_EVERY, mesh=None, split: bool = False, _eager: bool = False):
     """Preconditioned conjugate gradients over pose-block arrays f32[NP, 3].
 
     ``precond`` is a batched 3x3 block-inverse array (block-Jacobi) or a
     callable r -> M^-1 r.  ``x0`` warm-starts (default zeros).  Returns
     (x, n_iters, final rel. residual^2, breakdown, info): the first four as
     the JAX package's ``pcg`` returns them, as device tensors; ``info`` the
-    host counts {"matvecs", "polls"} of this call and "events", the number
-    of breakdown events (restarts, and the one that stopped the loop), a
-    device tensor.
+    host counts {"matvecs", "polls", "graph_bodies", "captures"} of this
+    call and "events", the number of breakdown events (restarts, and the
+    one that stopped the loop), a device tensor.
 
     Breakdown handling is the JAX package's: a non-positive curvature
     (p^T A p <= 0) or indefinite preconditioner apply (r^T z <= 0) restarts
@@ -232,6 +303,15 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     body and leaves the loop when it is false; the frozen bodies run in
     between (at most ``poll_every - 1`` per solve) are the price, counted
     in ``info["matvecs"]``.
+
+    On a CUDA device with no ``mesh`` and a cap of ``CG_GRAPH_MIN_ITERS`` or
+    more, the body is a CUDA graph: the first runs eagerly (the warm-up),
+    the second is captured, and it and every later one are one replay each
+    (``info``: "graph_bodies", the bodies replayed; "captures", 0 or 1).
+    The replayed kernels are the eager ones, so the results are too, up to
+    the order of the atomic sums.  Every preconditioner's apply reads
+    nothing back to the host, so each is captured.  ``_eager`` turns the
+    graph off (the card tests).
 
     ``mesh``: the ranks of a multi-device layout, whose polls go through
     ``poll``'s maximum.  ``split``: the vectors are split over the ranks
@@ -250,7 +330,7 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
 
     tiny = torch.finfo(rhs.dtype).tiny
     tol2 = tol * tol
-    matvecs = polls = 0
+    matvecs = polls = graph_bodies = 0
     if x0 is None:
         x0 = torch.zeros_like(rhs)
         r0 = rhs
@@ -263,60 +343,68 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     rr0 = dot(r0, r0)
     first_bad = (rz0 <= 0) & (rr0 / b2 > tol2)
     d0 = torch.where(first_bad, r0, z0)
-    x, r, z, p = x0, r0, d0, d0
-    rz = torch.where(first_bad, rr0, rz0)
-    nbrk = first_bad.to(torch.int32)
-    k = torch.zeros((), dtype=torch.int32, device=rhs.device)
-    x_best, rr_best, rr = x0, rr0, rr0
 
     def cond(k, nbrk, rr):
         return (nbrk <= restarts) & (k < max_iters) & (rr / b2 > tol2)
 
-    active = cond(k, nbrk, rr)
-    for it in range(max_iters):
-        if it % poll_every == 0:
-            polls += 1
-            if not poll(active, mesh):
-                break
-        Ap = matvec(p)
-        matvecs += 1
-        pAp = dot(p, Ap)
+    def body(s: CGState, out: CGState | None = None) -> CGState:
+        """One CG iteration, committed where ``s.active`` holds and frozen
+        elsewhere; written into ``out``'s tensors when given."""
+        Ap = matvec(s.p)
+        pAp = dot(s.p, Ap)
         curv_ok = pAp > 0
-        alpha = torch.where(curv_ok, rz, 0.0) / torch.where(curv_ok, pAp, 1.0)
-        x_n = x + alpha * p
-        r_n = r - alpha * Ap
+        alpha = torch.where(curv_ok, s.rz, 0.0) / torch.where(curv_ok, pAp, 1.0)
+        x_n = s.x + alpha * s.p
+        r_n = s.r - alpha * Ap
         # the best-residual iterate: after a breakdown the last can be far worse
         rr_n = dot(r_n, r_n)
-        better = rr_n < rr_best
-        x_best_n = torch.where(better, x_n, x_best)
-        rr_best_n = torch.where(better, rr_n, rr_best)
+        better = rr_n < s.rr_best
+        x_best_n = torch.where(better, x_n, s.x_best)
+        rr_best_n = torch.where(better, rr_n, s.rr_best)
         z_n = apply_m(r_n)
         rz_new = dot(r_n, z_n)
         rz_ok = rz_new > 0
         healthy = curv_ok & rz_ok
         # healthy: conjugate update; curvature event: restart p = z;
         # indefinite preconditioner: restart p = r
-        beta = torch.where(healthy, rz_new, 0.0) / torch.clamp(rz, min=tiny)
+        beta = torch.where(healthy, rz_new, 0.0) / torch.clamp(s.rz, min=tiny)
         z_eff = torch.where(rz_ok, z_n, r_n)
         rz_eff = torch.where(rz_ok, rz_new, rr_n)
-        p_n = z_eff + beta * p
-        nbrk_n = nbrk + (~healthy).to(torch.int32)
+        p_n = z_eff + beta * s.p
+        nbrk_n = s.nbrk + (~healthy).to(torch.int32)
         # commit the body where the loop was still running, freeze it elsewhere
-        x = torch.where(active, x_n, x)
-        r = torch.where(active, r_n, r)
-        z = torch.where(active, z_eff, z)
-        p = torch.where(active, p_n, p)
-        rz = torch.where(active, rz_eff, rz)
-        rr = torch.where(active, rr_n, rr)
-        nbrk = torch.where(active, nbrk_n, nbrk)
-        k = torch.where(active, k + 1, k)
-        x_best = torch.where(active, x_best_n, x_best)
-        rr_best = torch.where(active, rr_best_n, rr_best)
-        active = active & cond(k, nbrk, rr)
-    breakdown = nbrk > 0
-    x_out = torch.where(breakdown, x_best, x)
-    rr_out = torch.where(breakdown, rr_best, rr)
-    return x_out, k, rr_out / b2, breakdown, {"matvecs": matvecs, "polls": polls, "events": nbrk}
+        new = (x_n, r_n, z_eff, p_n, rz_eff, rr_n, nbrk_n, s.k + 1, x_best_n, rr_best_n)
+        if out is None:
+            t = [torch.where(s.active, n, o) for n, o in zip(new, s)]
+            t.append(s.active & cond(t[7], t[6], t[5]))
+        else:
+            t = [torch.where(s.active, n, o, out=w) for n, o, w in zip(new, s, out)]
+            t.append(torch.bitwise_and(s.active, cond(t[7], t[6], t[5]), out=out.active))
+        return CGState(*t)
+
+    k = torch.zeros((), dtype=torch.int32, device=rhs.device)
+    nbrk = first_bad.to(torch.int32)
+    s = CGState(x0, r0, d0, d0, torch.where(first_bad, rr0, rz0), rr0, nbrk, k, x0, rr0,
+                cond(k, nbrk, rr0))
+    graphed = (_GraphedBody(body) if rhs.is_cuda and mesh is None and not _eager
+               and max_iters >= CG_GRAPH_MIN_ITERS else None)
+    for it in range(max_iters):
+        if it % poll_every == 0:
+            polls += 1
+            if not poll(s.active, mesh):
+                break
+        if graphed is not None and it > 0:
+            s = graphed(s)
+            graph_bodies += 1
+        else:
+            s = body(s)
+        matvecs += 1
+    breakdown = s.nbrk > 0
+    x_out = torch.where(breakdown, s.x_best, s.x)
+    rr_out = torch.where(breakdown, s.rr_best, s.rr)
+    return x_out, s.k, rr_out / b2, breakdown, {
+        "matvecs": matvecs, "polls": polls, "graph_bodies": graph_bodies,
+        "captures": int(graph_bodies > 0), "events": s.nbrk}
 
 
 def flat_chain_band(blocks: SchurBlocks, g: FactorGraph, mesh=None) -> torch.Tensor:
@@ -360,9 +448,11 @@ def _flat_preconditioner(blocks: SchurBlocks, g: FactorGraph, cfg: SolverConfig,
 
 def cg_stats(n_iters, rel_res2, breakdown, info, device) -> dict:
     """The CG stats of one solve, as device tensors; the host counts are
-    also charged to the open root span as "cg.bodies" and "cg.polls"."""
+    also charged to the open root span as "cg.bodies", "cg.polls" and
+    "cg.graph_bodies"."""
     count("cg.bodies", info["matvecs"])
     count("cg.polls", info["polls"])
+    count("cg.graph_bodies", info["graph_bodies"])
     return {
         "cg_iters": n_iters,
         "cg_rel_res2": rel_res2,

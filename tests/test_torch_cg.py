@@ -176,6 +176,133 @@ def test_pcg_restarts_with_indefinite_preconditioner(restarts):
     np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-4, atol=1e-4 * np.abs(xj).max())
 
 
+
+def _pcg_loop_before_the_factored_body(matvec, rhs, precond, max_iters, tol, x0=None,
+                                       restarts=0, poll_every=schur.CG_POLL_EVERY):
+    """``schur.pcg`` as it was before its body became one function: the
+    loop written out, as the oracle of the factored body's bits."""
+    apply_m = precond if callable(precond) else (
+        lambda r: torch.einsum("pij,pj->pi", precond, r))
+    dot = lambda u, v: torch.sum(u * v)  # noqa: E731
+    tiny = torch.finfo(rhs.dtype).tiny
+    tol2 = tol * tol
+    matvecs = polls = 0
+    if x0 is None:
+        x0 = torch.zeros_like(rhs)
+        r0 = rhs
+    else:
+        r0 = rhs - matvec(x0)
+        matvecs += 1
+    z0 = apply_m(r0)
+    rz0 = dot(r0, z0)
+    b2 = torch.clamp(dot(rhs, rhs), min=tiny)
+    rr0 = dot(r0, r0)
+    first_bad = (rz0 <= 0) & (rr0 / b2 > tol2)
+    d0 = torch.where(first_bad, r0, z0)
+    x, r, z, p = x0, r0, d0, d0
+    rz = torch.where(first_bad, rr0, rz0)
+    nbrk = first_bad.to(torch.int32)
+    k = torch.zeros((), dtype=torch.int32)
+    x_best, rr_best, rr = x0, rr0, rr0
+
+    def cond(k, nbrk, rr):
+        return (nbrk <= restarts) & (k < max_iters) & (rr / b2 > tol2)
+
+    active = cond(k, nbrk, rr)
+    for it in range(max_iters):
+        if it % poll_every == 0:
+            polls += 1
+            if not bool(active):
+                break
+        Ap = matvec(p)
+        matvecs += 1
+        pAp = dot(p, Ap)
+        curv_ok = pAp > 0
+        alpha = torch.where(curv_ok, rz, 0.0) / torch.where(curv_ok, pAp, 1.0)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        rr_n = dot(r_n, r_n)
+        better = rr_n < rr_best
+        x_best_n = torch.where(better, x_n, x_best)
+        rr_best_n = torch.where(better, rr_n, rr_best)
+        z_n = apply_m(r_n)
+        rz_new = dot(r_n, z_n)
+        rz_ok = rz_new > 0
+        healthy = curv_ok & rz_ok
+        beta = torch.where(healthy, rz_new, 0.0) / torch.clamp(rz, min=tiny)
+        z_eff = torch.where(rz_ok, z_n, r_n)
+        rz_eff = torch.where(rz_ok, rz_new, rr_n)
+        p_n = z_eff + beta * p
+        nbrk_n = nbrk + (~healthy).to(torch.int32)
+        x = torch.where(active, x_n, x)
+        r = torch.where(active, r_n, r)
+        z = torch.where(active, z_eff, z)
+        p = torch.where(active, p_n, p)
+        rz = torch.where(active, rz_eff, rz)
+        rr = torch.where(active, rr_n, rr)
+        nbrk = torch.where(active, nbrk_n, nbrk)
+        k = torch.where(active, k + 1, k)
+        x_best = torch.where(active, x_best_n, x_best)
+        rr_best = torch.where(active, rr_best_n, rr_best)
+        active = active & cond(k, nbrk, rr)
+    breakdown = nbrk > 0
+    x_out = torch.where(breakdown, x_best, x)
+    rr_out = torch.where(breakdown, rr_best, rr)
+    return x_out, k, rr_out / b2, breakdown, {"matvecs": matvecs, "polls": polls, "events": nbrk}
+
+
+@pytest.mark.parametrize("poll_every", [1, 4, 7])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("precond", ["blocks", "callable", "indefinite"])
+def test_pcg_body_matches_the_loop_before_it(poll_every, warm, precond):
+    """The factored CG body, run eagerly (the CPU never captures), gives the
+    bits of the loop it replaced: iterate, count, residual, breakdown and
+    every host count, through convergence, a cap that is no multiple of
+    the poll interval (50) and the restarts of an indefinite
+    preconditioner; nothing is replayed."""
+    rng = np.random.default_rng(11)
+    n = 30
+    A, b = _spd_system(n, rng, cond=1e3)
+    blocks = np.stack([np.linalg.inv(A[3 * i:3 * i + 3, 3 * i:3 * i + 3]) for i in range(n)])
+    if precond == "indefinite":
+        blocks[: n // 3] *= -1.0
+    M = torch.from_numpy(blocks.astype(np.float32))
+    if precond == "callable":
+        M = (lambda B: lambda r: torch.einsum("pij,pj->pi", B, r))(M)
+    At = torch.from_numpy(A)
+    mv = lambda v: (At @ v.reshape(-1)).reshape(-1, 3)  # noqa: E731
+    x0 = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)) if warm else None
+    kw = dict(x0=x0, restarts=2, poll_every=poll_every)
+    for max_iters, tol in ((50, 1e-9), (200, 1e-5)):
+        got = schur.pcg(mv, torch.from_numpy(b), M, max_iters, tol, **kw)
+        want = _pcg_loop_before_the_factored_body(mv, torch.from_numpy(b), M, max_iters, tol,
+                                                  **kw)
+        for g_, w_ in zip(got[:4], want[:4]):
+            assert torch.equal(g_, w_)
+        info, info_w = got[4], want[4]
+        assert torch.equal(info.pop("events"), info_w.pop("events"))
+        assert info == {**info_w, "graph_bodies": 0, "captures": 0}
+
+
+def test_every_kernel_counter_is_registered():
+    """``ops.counters`` reads and charges every kernel wrapper's launch
+    counters, the band route's too, in the order they were registered."""
+    from boslam_torch.ops import cholesky, counters, gn_step, schur_solve, windowed_gather
+
+    assert set(counters._COUNTERS) == {
+        (windowed_gather.windowed_take, "launches"), (cholesky.cholesky_solve_padded, "launches"),
+        (schur_solve.fused_schur_solve_blocks, "launches"),
+        (schur_solve.fused_schur_solve_blocks, "band_launches"),
+        (gn_step.fused_gn_step, "launches"), (gn_step.fused_gn_step, "band_launches")}
+    before = counters.read()
+    i = counters._COUNTERS.index((windowed_gather.windowed_take, "launches"))
+    step = [k + 1 for k in range(len(before))]
+    counters.add(step)
+    assert windowed_gather.windowed_take.launches == before[i] + i + 1
+    counters.add([-k for k in step])
+    assert counters.read() == before
+
+
 def _graphs(loop_closures=0):
     ig, _ = generate_sequence(300, 120, seed=11, loop_closures=loop_closures)
     gj, _ = build_graph_jax(ig, init="triangulate")

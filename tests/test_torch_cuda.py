@@ -780,3 +780,186 @@ def test_spans_on_the_card(cuda):
     assert "unmatched" not in tr.by_span and tr.by_span["solve_packed/step/pcg"][1] > 0
     idle = sum(i for _, _, i in tr.by_span.values()) * 1e3
     assert idle == pytest.approx(tr.window_ms - tr.busy_ms, rel=1e-2)
+
+
+def _pcg_calls(monkeypatch, g, cfg, poll_every=None):
+    """The arguments of every ``pcg`` call of one packed solve of ``g``,
+    the solve run with the loop eager."""
+    from boslam_torch.solver import schur, schur_packed
+    from boslam_torch.solver.optimizer import solve_packed
+
+    calls = []
+
+    def spy(*a, **kw):
+        if poll_every is not None:
+            kw["poll_every"] = poll_every
+        calls.append((a, kw))
+        return schur.pcg(*a, **kw, _eager=True)
+
+    with monkeypatch.context() as m:
+        m.setattr(schur_packed, "pcg", spy)
+        solve_packed(g, cfg)
+    return calls
+
+
+@pytest.mark.parametrize("poll_every", [1, 4, 7])
+@pytest.mark.parametrize("precond", ["block_jacobi", "btridiag", "two_level", "bband"])
+def test_captured_pcg_matches_eager_bitwise(cuda, monkeypatch, precond, poll_every):
+    """``pcg`` with its blocks replayed as a CUDA graph against the same
+    call with every body launched from the host, on a walk whose body sums
+    nothing with atomics (no loop closure, landmark rows not split): the
+    same bits of x, n_iters, rel_res2 and breakdown, the same host counts,
+    and every body after the first replayed, through a cap of 30 that is no
+    multiple of the poll interval."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver import schur
+
+    g = _graph(2000, 800, cuda)
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner=precond, lm_split=0, iters=2,
+                       cg_iters=30, cg_tol=1e-12)
+    calls = _pcg_calls(monkeypatch, g, cfg, poll_every)
+    assert len(calls) == 2
+    for a, kw in calls:
+        eager = schur.pcg(*a, **kw, _eager=True)
+        graphed = schur.pcg(*a, **kw)
+        for u, v in zip(eager[:4], graphed[:4]):
+            assert torch.equal(u, v)
+        ie, ig = dict(eager[4]), dict(graphed[4])
+        assert torch.equal(ie.pop("events"), ig.pop("events"))
+        assert ie["matvecs"] > 1 and ie["captures"] == ie["graph_bodies"] == 0
+        assert ig == {**ie, "graph_bodies": ie["matvecs"] - 1, "captures": 1}
+
+
+@pytest.mark.parametrize("below", [1, 0])
+def test_a_short_cg_cap_stays_eager(cuda, monkeypatch, below):
+    """A cap below ``CG_GRAPH_MIN_ITERS`` launches every body from the
+    host, where a capture would cost more than its replays save; at the
+    least cap every body but the first is replayed."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver import schur
+
+    g = _graph(2000, 800, cuda)
+    cap = schur.CG_GRAPH_MIN_ITERS - below
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=1,
+                       cg_iters=cap, cg_tol=1e-12)
+    (a, kw), = _pcg_calls(monkeypatch, g, cfg)
+    info = schur.pcg(*a, **kw)[4]
+    assert info["matvecs"] == cap
+    assert (info["captures"], info["graph_bodies"]) == ((0, 0) if below else (1, cap - 1))
+
+
+def test_captured_pcg_within_the_eager_spread(cuda, monkeypatch):
+    """On the benchmark's kind of walk (split landmark rows, so the matvec
+    sums with ``index_add_``'s atomics): the captured loop's iterate lies
+    from an eager run's no further than twice the farthest of three more
+    eager runs from it, with the same iteration count and breakdown."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver import schur
+
+    g = _graph(2000, 800, cuda)
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=2,
+                       cg_iters=100)
+    for a, kw in _pcg_calls(monkeypatch, g, cfg):
+        eager = [schur.pcg(*a, **kw, _eager=True) for _ in range(4)]
+        graphed = [schur.pcg(*a, **kw) for _ in range(3)]
+        x0 = eager[0][0]
+        spread = max((e[0] - x0).abs().max().item() for e in eager[1:])
+        far = max((c[0] - x0).abs().max().item() for c in graphed)
+        assert far <= 2 * spread, (far, spread)
+        for out in eager[1:] + graphed:
+            assert torch.equal(out[1], eager[0][1]) and torch.equal(out[3], eager[0][3])
+        assert all(c[4]["graph_bodies"] > 0 for c in graphed)
+
+
+def test_captured_pcg_counts_the_windowed_launches(cuda, monkeypatch):
+    """Under ``gather="windowed"`` a replayed body adds to every kernel's
+    launch counter what an eager body adds: the captured and the eager
+    solve count the same launches of every kernel, ``windowed_take``'s
+    5 + 2 k per outer, and every body but each outer's first is replayed."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.ops import counters
+    from boslam_torch.ops import windowed_gather as wg
+    from boslam_torch.solver import schur, schur_packed
+    from boslam_torch.solver.optimizer import solve_packed
+    from boslam_torch.synth import generate_sequence
+    from boslam_torch.utils import spans
+
+    ig, _ = generate_sequence(600, 240, seed=3, turn_every=10**9)
+    g = build_graph(ig, init="triangulate", device="cpu")[0].to(cuda)
+    cfg = SolverConfig(linear_solver="schur_cg", gather="windowed", iters=2, cg_iters=30,
+                       cg_tol=1e-12)
+    counted, takes = [], []
+    for eager in (True, False):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(schur_packed, "pcg",
+                          lambda *a, **kw: schur.pcg(*a, **kw, _eager=True))
+            before, take = counters.read(), wg.windowed_take.launches
+            _, st = solve_packed(g, cfg)
+            counted.append([a - b for a, b in zip(counters.read(), before)])
+            takes.append(wg.windowed_take.launches - take)
+        assert takes[-1] == sum(5 + 2 * int(k) for k in st["cg_matvecs"])
+    rec = [r for r in spans.records() if r.name == "solve_packed"][-1]
+    assert rec.counters["cg.graph_bodies"] == int(st["cg_matvecs"].sum()) - cfg.iters
+    assert counted[0] == counted[1] and takes[0] == takes[1] > 0
+
+
+def test_captured_pcg_gives_its_memory_back(cuda, monkeypatch):
+    """Twenty captured ``pcg`` calls after a first: the allocated memory
+    returns to its level before them, and the reserved memory does not
+    grow (every capture draws on one pool)."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver import schur
+
+    g = _graph(2000, 800, cuda)
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=1,
+                       cg_iters=40)
+    (a, kw), = _pcg_calls(monkeypatch, g, cfg)
+    schur.pcg(*a, **kw)
+    torch.cuda.synchronize()
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    for _ in range(20):
+        out = schur.pcg(*a, **kw)
+        assert out[4]["captures"] == 1
+        del out
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == allocated
+    assert torch.cuda.memory_reserved() == reserved
+
+
+def test_profiler_sees_the_replayed_bodies(cuda, monkeypatch):
+    """A profiler session over a captured packed solve records the
+    replayed bodies' kernels: every kernel of the eager solve as many
+    times, and beyond them only a few operations at each capture (the
+    state's copy into its fixed buffers), also under the span
+    "solve_packed/step/pcg"."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver import schur, schur_packed
+    from boslam_torch.solver.optimizer import solve_packed
+    from boslam_torch.utils import profiling
+
+    g = _graph(2000, 800, cuda)
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=2,
+                       cg_iters=40)
+
+    def run():
+        out, _ = solve_packed(g, cfg)
+        return out.poses.cpu()
+
+    run()
+    captured = profiling.device_time_by_kernel(run, cuda)
+    with monkeypatch.context() as m:
+        m.setattr(schur_packed, "pcg", lambda *a, **kw: schur.pcg(*a, **kw, _eager=True))
+        run()
+        eager = profiling.device_time_by_kernel(run, cuda)
+    n_of = lambda tr, k: tr.kernels.get(k, (0, 0))[1]  # noqa: E731
+    lost = {k: n - n_of(captured, k) for k, (_, n) in eager.kernels.items()
+            if n_of(captured, k) < n}
+    extra = {k: n - n_of(eager, k) for k, (_, n) in captured.kernels.items()
+             if n > n_of(eager, k)}
+    assert not lost, lost
+    budget = 2 * len(schur.CGState._fields) * cfg.iters
+    assert captured.n_ops - eager.n_ops == sum(extra.values()) <= budget, extra
+    pcg_ops = [tr.by_span["solve_packed/step/pcg"][1] for tr in (captured, eager)]
+    assert 0 <= pcg_ops[0] - pcg_ops[1] <= budget

@@ -119,18 +119,30 @@ def test_packed_solve_paths_and_counters_agree_with_its_stats(walk):
     assert set(rec.paths) == PACKED
     assert rec.counters == {"gn.outers": CFG.iters,
                             "cg.bodies": int(stats["cg_matvecs"].sum()),
-                            "cg.polls": int(stats["cg_polls"].sum())}
+                            "cg.polls": int(stats["cg_polls"].sum()),
+                            "cg.graph_bodies": 0}
     assert rec.paths["solve_packed/step"][0] == CFG.iters
     assert rec.paths["solve_packed/step/pcg/poll"][0] == rec.counters["cg.polls"]
     assert rec.paths["solve_packed"][1] == rec.end_ns - rec.start_ns
 
+
+@pytest.mark.parametrize("entry", ["solve_packed", "solve"])
+def test_the_cpu_never_replays_a_cg_block(walk, entry):
+    """On the CPU every CG body is launched from the host: both solve paths
+    charge "cg.graph_bodies" 0, and their bodies are their stats' matvecs."""
+    g, _ = build_graph(walk, init="triangulate", device="cpu")
+    _, stats = {"solve_packed": solve_packed, "solve": solve}[entry](g, CFG)
+    rec = _last(entry)
+    assert rec.counters["cg.graph_bodies"] == 0 and "cg.captures" not in rec.counters
+    assert rec.counters["cg.bodies"] == int(stats["cg_matvecs"].sum()) > 0
 
 def test_flat_solve_is_one_root(walk):
     g, _ = build_graph(walk, init="triangulate", device="cpu")
     _, stats = solve(g, CFG)
     rec = _last("solve")
     assert rec.counters == {"cg.bodies": int(stats["cg_matvecs"].sum()),
-                            "cg.polls": int(stats["cg_polls"].sum())}
+                            "cg.polls": int(stats["cg_polls"].sum()),
+                            "cg.graph_bodies": 0}
     assert set(rec.paths) == {"solve", "solve/poll"}
 
 
