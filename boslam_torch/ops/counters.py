@@ -1,10 +1,13 @@
-"""The launch counters of the hand-written kernels' wrappers.
+"""The counters of what a CUDA graph's replay repeats.
 
-Each wrapper counts the launches it made in attributes of its own
-(``windowed_take.launches``; ``fused_gn_step.band_launches``, those of
-``.launches`` on the band route), registered here by ``counter``, so that
-a caller can read and charge them all at once: a CUDA graph's capture
-launches nothing, and each replay launches what the captured calls did.
+Each hand-written kernel's wrapper counts the launches it made in
+attributes of its own (``windowed_take.launches``;
+``fused_gn_step.band_launches``, those of ``.launches`` on the band
+route), and the packed solver's gather its calls by route
+(``schur_packed.gather_counts``, on every device), registered here by
+``counter``, so that a caller can read and charge them all at once: a
+CUDA graph's capture launches nothing, and each replay launches what the
+captured calls did.
 """
 
 from __future__ import annotations

@@ -187,9 +187,11 @@ def packed_solve_loop(graph: FactorGraph, pk, cfg: SolverConfig, lam0: torch.Ten
     is the last outer delta and, under LM, ``stats["lam_final"]`` the next
     trial's damping; every other stat has a leading ``iters`` axis.
     ``mesh``: the graph's edges and the grids' slot columns are the rank's
-    shard.
+    shard.  Each outer charges the open root span "gn.outers" and its
+    gathers by route, "gather.windowed" and "gather.plain"
+    (``schur_packed.gather_counts``).
     """
-    from boslam_torch.solver.schur_packed import packed_gn_step, packed_lm_step
+    from boslam_torch.solver.schur_packed import gather_counts, packed_gn_step, packed_lm_step
 
     _check_ported(cfg)
     if cfg.optimizer not in ("gn", "lm"):
@@ -204,10 +206,13 @@ def packed_solve_loop(graph: FactorGraph, pk, cfg: SolverConfig, lam0: torch.Ten
         kt = cfg.kt_at(start_iter + i)
         with span("step"):
             count("gn.outers")
+            windowed, plain = gather_counts()
             if cfg.optimizer == "gn":
                 g, stats, dp = packed_gn_step(g, pk, cfg, dp, kt=kt, mesh=mesh)
             else:
                 g, lam, stats, dp = packed_lm_step(g, pk, cfg, lam, dp, kt=kt, mesh=mesh)
+            count("gather.windowed", gather_counts()[0] - windowed)
+            count("gather.plain", gather_counts()[1] - plain)
         per_iter.append(stats)
     stats = _stack(per_iter)
     stats["dp_final"] = dp

@@ -38,6 +38,7 @@ from boslam_torch.config import BF16_CG_TOL_FLOOR, SolverConfig
 from boslam_torch.geometry.se2 import boxplus_state
 from boslam_torch.graph.data import FactorGraph
 from boslam_torch.graph.packed import PackedEdges
+from boslam_torch.ops.counters import counter
 from boslam_torch.ops.windowed_gather import WindowPlan, windowed_take
 from boslam_torch.solver.gauss_newton import delta_norm
 from boslam_torch.solver import residuals as R
@@ -51,11 +52,27 @@ from boslam_torch.utils.spans import span
 def _take(values: torch.Tensor, idx: torch.Tensor, plan: "WindowPlan | None"):
     """values[idx] by plain gather, or by the windowed kernel when the grid
     has a plan.  The plain gather fetches row 0 for padding slots (omega
-    masks it downstream); the windowed one gives exact zeros."""
+    masks it downstream); the windowed one gives exact zeros.  Each call
+    counts its route (``gather_counts``)."""
     if plan is None:
+        _take.plain += 1
         return values[idx]
+    _take.windowed += 1
     flat = values.reshape(values.shape[0], -1).contiguous()
     return windowed_take(flat, idx, plan).reshape(idx.shape + values.shape[1:])
+
+
+counter(_take, "windowed", "plain")
+
+
+def gather_counts() -> tuple:
+    """(windowed, plain): the packed gathers made so far by route.
+
+    Counted on every device, the CPU's plain version of the windowed gather
+    too; on the card a windowed gather is one ``windowed_take.launches``.
+    Registered in ``ops/counters.py``, so a CUDA graph's replay charges
+    what its captured body counted."""
+    return _take.windowed, _take.plain
 
 
 def _couple(spec: str, B: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

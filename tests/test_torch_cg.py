@@ -286,14 +286,17 @@ def test_pcg_body_matches_the_loop_before_it(poll_every, warm, precond):
 
 def test_every_kernel_counter_is_registered():
     """``ops.counters`` reads and charges every kernel wrapper's launch
-    counters, the band route's too, in the order they were registered."""
+    counters, the band route's too, and the packed gathers' route counters,
+    in the order they were registered."""
     from boslam_torch.ops import cholesky, counters, gn_step, schur_solve, windowed_gather
+    from boslam_torch.solver import schur_packed
 
     assert set(counters._COUNTERS) == {
         (windowed_gather.windowed_take, "launches"), (cholesky.cholesky_solve_padded, "launches"),
         (schur_solve.fused_schur_solve_blocks, "launches"),
         (schur_solve.fused_schur_solve_blocks, "band_launches"),
-        (gn_step.fused_gn_step, "launches"), (gn_step.fused_gn_step, "band_launches")}
+        (gn_step.fused_gn_step, "launches"), (gn_step.fused_gn_step, "band_launches"),
+        (schur_packed._take, "windowed"), (schur_packed._take, "plain")}
     before = counters.read()
     i = counters._COUNTERS.index((windowed_gather.windowed_take, "launches"))
     step = [k + 1 for k in range(len(before))]

@@ -905,6 +905,117 @@ def test_captured_pcg_counts_the_windowed_launches(cuda, monkeypatch):
     assert counted[0] == counted[1] and takes[0] == takes[1] > 0
 
 
+def _corridor_10k(device, seed=0):
+    """The benchmark's 10k corridor (``benchmark/configs/corridor_10k.json``,
+    generator seed 0 the first of its pool), built on the card."""
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.synth import generate_sequence
+
+    ig, _ = generate_sequence(10000, 4000, seed=seed, turn_every=10**9)
+    return build_graph(ig, init="triangulate", device=device)[0]
+
+
+# the corridor cell's solver: GN 5, block-Jacobi PCG capped at 100, windowed
+CORRIDOR_CELL = dict(linear_solver="schur_cg", preconditioner="block_jacobi", gather="windowed",
+                     iters=5, cg_iters=100, cg_tol=1e-5)
+# windowed against take on the card: chi2 at iteration 0 within 1e-5 (one
+# state, two orders of a sum), the later ones within 2e-3, the bound of the
+# packed trace chain on two orderings of truncated f32 CG (the take path's
+# diag(S) and its landmark-keyed sums run in another order)
+WINDOWED_VS_TAKE = (1e-5, 2e-3)
+
+
+def _corridor_solves(monkeypatch, g, cfg):
+    """(eager, captured) packed solves of ``g``: (final graph, stats, the
+    solve_packed root's counters, every kernel counter's difference)."""
+    from boslam_torch.ops import counters
+    from boslam_torch.solver import schur, schur_packed
+    from boslam_torch.solver.optimizer import solve_packed
+    from boslam_torch.utils import spans
+
+    out = []
+    for eager in (True, False):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(schur_packed, "pcg",
+                          lambda *a, **kw: schur.pcg(*a, **kw, _eager=True))
+            before = counters.read()
+            final, st = solve_packed(g, cfg)
+            torch.cuda.synchronize()
+            counted = [a - b for a, b in zip(counters.read(), before)]
+        rec = [r for r in spans.records() if r.name == "solve_packed"][-1]
+        out.append((final, st, rec.counters, counted))
+    return out
+
+
+def test_captured_windowed_pcg_matches_eager_bitwise(cuda, monkeypatch):
+    """On the benchmark's 10k corridor with every gather windowed (no split
+    landmark row and an odometry chain, so the body sums nothing with
+    atomics): each ``pcg`` call replayed from its graph gives the eager
+    loop's bits, and so does the whole solve: chi2 trace, CG iterations and
+    final state, with every body after each outer's first replayed."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver import schur
+
+    g = _corridor_10k(cuda)
+    cfg = SolverConfig(**CORRIDOR_CELL)
+    calls = _pcg_calls(monkeypatch, g, cfg)
+    assert len(calls) == cfg.iters
+    for a, kw in calls:
+        eager = schur.pcg(*a, **kw, _eager=True)
+        graphed = schur.pcg(*a, **kw)
+        for u, v in zip(eager[:4], graphed[:4]):
+            assert torch.equal(u, v)
+        ie, ig = dict(eager[4]), dict(graphed[4])
+        assert torch.equal(ie.pop("events"), ig.pop("events"))
+        assert ig == {**ie, "graph_bodies": ie["matvecs"] - 1, "captures": 1}
+    (fe, se, _, _), (fg, sg, counted, _) = _corridor_solves(monkeypatch, g, cfg)
+    for k in ("chi2_robust", "cg_iters", "cg_matvecs"):
+        assert torch.equal(se[k], sg[k]), k
+    assert torch.equal(fe.poses, fg.poses) and torch.equal(fe.landmarks, fg.landmarks)
+    assert counted["cg.graph_bodies"] == int(sg["cg_matvecs"].sum()) - cfg.iters
+
+
+def test_replayed_corridor_solve_counts_the_gathers_routes(cuda, monkeypatch):
+    """A replay charges the gathers' route counters what the captured body
+    counted, the capture nothing: after a captured solve of the 10k corridor
+    "gather.windowed" and "gather.plain" equal the eager solve's, every
+    gather is windowed, 5 + 2 k per outer (k matvecs), and each was one
+    launch of ``windowed_take``."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.ops import counters
+    from boslam_torch.ops import windowed_gather as wg
+
+    g = _corridor_10k(cuda)
+    cfg = SolverConfig(**CORRIDOR_CELL)
+    runs = _corridor_solves(monkeypatch, g, cfg)
+    launches = counters._COUNTERS.index((wg.windowed_take, "launches"))
+    for _, st, rec, counted in runs:
+        bodies = int(st["cg_matvecs"].sum())
+        assert rec["gather.windowed"] == 5 * cfg.iters + 2 * bodies == counted[launches]
+        assert rec["gather.plain"] == 0
+    (_, _, eager, counted_e), (_, _, graphed, counted_g) = runs
+    routes = ("gather.windowed", "gather.plain", "cg.bodies")
+    assert {k: eager[k] for k in routes} == {k: graphed[k] for k in routes}
+    assert counted_e == counted_g and graphed["cg.graph_bodies"] > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_windowed_corridor_solve_against_take_on_the_card(cuda, seed):
+    """The 10k corridor solved with windowed gathers against plain ones on
+    the card, both captured: the chi2 trace within ``WINDOWED_VS_TAKE``."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.solver.optimizer import solve_packed
+
+    g = _corridor_10k(cuda, seed)
+    cfg = SolverConfig(**CORRIDOR_CELL)
+    c_w = solve_packed(g, cfg)[1]["chi2_robust"].cpu().numpy()
+    c_t = solve_packed(g, cfg.replace(gather="take"))[1]["chi2_robust"].cpu().numpy()
+    rel = np.abs(c_w.astype(np.float64) - c_t) / c_t
+    first, later = WINDOWED_VS_TAKE
+    assert rel[0] <= first and (rel[1:] <= later).all(), rel.tolist()
+
+
 def test_captured_pcg_gives_its_memory_back(cuda, monkeypatch):
     """Twenty captured ``pcg`` calls after a first: the allocated memory
     returns to its level before them, and the reserved memory does not

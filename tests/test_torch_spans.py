@@ -117,10 +117,13 @@ def test_packed_solve_paths_and_counters_agree_with_its_stats(walk):
     _, stats = solve_packed(g, CFG)
     rec = _last("solve_packed")
     assert set(rec.paths) == PACKED
+    # the walk's grids have no window plan: 4 plain gathers an outer (two
+    # in the assembly, the reduced rhs, the back-substitution), 2 a matvec
     assert rec.counters == {"gn.outers": CFG.iters,
                             "cg.bodies": int(stats["cg_matvecs"].sum()),
                             "cg.polls": int(stats["cg_polls"].sum()),
-                            "cg.graph_bodies": 0}
+                            "cg.graph_bodies": 0, "gather.windowed": 0,
+                            "gather.plain": 4 * CFG.iters + 2 * int(stats["cg_matvecs"].sum())}
     assert rec.paths["solve_packed/step"][0] == CFG.iters
     assert rec.paths["solve_packed/step/pcg/poll"][0] == rec.counters["cg.polls"]
     assert rec.paths["solve_packed"][1] == rec.end_ns - rec.start_ns

@@ -4,7 +4,9 @@ and what the spans' profiler annotations cost.
 On ``generate_sequence(n, 2n/5, seed=0)`` (the 10k walk by default), one
 whole solve as a user runs it: ``build_graph`` with triangulation,
 ``solve_packed`` (5 GN outers, block-Jacobi PCG capped at 100) and the
-final state copied to the host.  After two warm solves, ``--rounds``
+final state copied to the host.  ``--corridor`` lays the same graph out
+as the benchmark's corridor, a straight line (``turn_every=10**9``),
+solved with windowed gathers.  After two warm solves, ``--rounds``
 rounds each profile the solve twice: once bare (``_profile_once``, no
 annotation) and once through ``utils/profiling.device_time_by_kernel``,
 which annotates the program's spans.  The wall times of the two, on the
@@ -15,8 +17,8 @@ program span, the device's busy ms, the operations it launched and the
 idle ms before them, ranked by idle time; then the idle time summed over
 the spans against the window's (window less busy time).
 
-    python tools/port_span_trace.py [--poses N] [--rounds R] [--device cuda|cpu]
-                                   [--json-out FILE]
+    python tools/port_span_trace.py [--poses N] [--corridor] [--rounds R]
+                                   [--device cuda|cpu] [--json-out FILE]
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ sys.path.insert(0, REPO)
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--poses", type=int, default=10000)
+    ap.add_argument("--corridor", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json-out", default=None)
@@ -52,9 +55,11 @@ def main(argv=None) -> int:
     # the build warns once per landmark with a single observation
     logging.getLogger("boslam_torch").setLevel(logging.ERROR)
     dev = torch.device(args.device)
-    parsed, _ = generate_sequence(args.poses, args.poses * 2 // 5, seed=0)
+    layout = {"turn_every": 10**9} if args.corridor else {}
+    parsed, _ = generate_sequence(args.poses, args.poses * 2 // 5, seed=0, **layout)
     cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=5,
-                       cg_iters=100, cg_tol=1e-5)
+                       cg_iters=100, cg_tol=1e-5,
+                       gather="windowed" if args.corridor else "auto")
 
     def whole_solve():
         g, _ = build_graph(parsed, init="triangulate", device=dev)
@@ -81,7 +86,7 @@ def main(argv=None) -> int:
     print(f"wall of the profiled solve, ms: bare {off}, annotated {on}; medians "
           f"{statistics.median(off):.3f} and {statistics.median(on):.3f}")
     out = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-           "poses": args.poses, "n_ops": tr.n_ops, "busy_ms": tr.busy_ms,
+           "poses": args.poses, "corridor": args.corridor, "n_ops": tr.n_ops, "busy_ms": tr.busy_ms,
            "window_ms": tr.window_ms, "idle_summed_ms": idle_ms,
            "window_idle_ms": window_idle_ms,
            "by_span": {k: list(v) for k, v in tr.by_span.items()},
