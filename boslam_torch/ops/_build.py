@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "boslam_torch_kernels"
-KERNELS = ("cholesky", "schur_solve", "gn_step", "windowed_gather")
+KERNELS = ("cholesky", "schur_solve", "gn_step", "windowed_gather", "pcg_body")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

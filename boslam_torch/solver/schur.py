@@ -277,17 +277,62 @@ class _GraphedBody:
         counters.add([-n for n in self.launches])
 
 
+def cg_step(s: CGState, Ap: torch.Tensor, apply_m, dot, cond,
+            out: CGState | None = None) -> CGState:
+    """One CG iteration from ``s`` and its ``Ap`` = A p: ``pcg``'s body past
+    the matvec, with ``apply_m`` r -> M^-1 r, ``dot`` and the loop condition
+    ``cond(k, nbrk, rr)``.  Committed where ``s.active`` holds and frozen
+    elsewhere; written into ``out``'s tensors when given."""
+    tiny = torch.finfo(Ap.dtype).tiny
+    pAp = dot(s.p, Ap)
+    curv_ok = pAp > 0
+    alpha = torch.where(curv_ok, s.rz, 0.0) / torch.where(curv_ok, pAp, 1.0)
+    x_n = s.x + alpha * s.p
+    r_n = s.r - alpha * Ap
+    # the best-residual iterate: after a breakdown the last can be far worse
+    rr_n = dot(r_n, r_n)
+    better = rr_n < s.rr_best
+    x_best_n = torch.where(better, x_n, s.x_best)
+    rr_best_n = torch.where(better, rr_n, s.rr_best)
+    z_n = apply_m(r_n)
+    rz_new = dot(r_n, z_n)
+    rz_ok = rz_new > 0
+    healthy = curv_ok & rz_ok
+    # healthy: conjugate update; curvature event: restart p = z;
+    # indefinite preconditioner: restart p = r
+    beta = torch.where(healthy, rz_new, 0.0) / torch.clamp(s.rz, min=tiny)
+    z_eff = torch.where(rz_ok, z_n, r_n)
+    rz_eff = torch.where(rz_ok, rz_new, rr_n)
+    p_n = z_eff + beta * s.p
+    nbrk_n = s.nbrk + (~healthy).to(torch.int32)
+    # commit the body where the loop was still running, freeze it elsewhere
+    new = (x_n, r_n, z_eff, p_n, rz_eff, rr_n, nbrk_n, s.k + 1, x_best_n, rr_best_n)
+    if out is None:
+        t = [torch.where(s.active, n, o) for n, o in zip(new, s)]
+        t.append(s.active & cond(t[7], t[6], t[5]))
+    else:
+        t = [torch.where(s.active, n, o, out=w) for n, o, w in zip(new, s, out)]
+        t.append(torch.bitwise_and(s.active, cond(t[7], t[6], t[5]), out=out.active))
+    return CGState(*t)
+
+
+def cg_cond(b2, tol2: float, restarts: int, max_iters: int):
+    """``pcg``'s loop condition (k, nbrk, rr) -> still running."""
+    return lambda k, nbrk, rr: (nbrk <= restarts) & (k < max_iters) & (rr / b2 > tol2)
+
+
 def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int = 0,
-        poll_every: int = CG_POLL_EVERY, mesh=None, split: bool = False, _eager: bool = False):
+        poll_every: int = CG_POLL_EVERY, mesh=None, split: bool = False,
+        _eager: bool = False):
     """Preconditioned conjugate gradients over pose-block arrays f32[NP, 3].
 
     ``precond`` is a batched 3x3 block-inverse array (block-Jacobi) or a
     callable r -> M^-1 r.  ``x0`` warm-starts (default zeros).  Returns
     (x, n_iters, final rel. residual^2, breakdown, info): the first four as
     the JAX package's ``pcg`` returns them, as device tensors; ``info`` the
-    host counts {"matvecs", "polls", "graph_bodies", "captures"} of this
-    call and "events", the number of breakdown events (restarts, and the
-    one that stopped the loop), a device tensor.
+    host counts {"matvecs", "polls", "graph_bodies", "captures",
+    "fused_bodies"} of this call and "events", the number of breakdown
+    events (restarts, and the one that stopped the loop), a device tensor.
 
     Breakdown handling is the JAX package's: a non-positive curvature
     (p^T A p <= 0) or indefinite preconditioner apply (r^T z <= 0) restarts
@@ -312,6 +357,13 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     the order of the atomic sums.  Every preconditioner's apply reads
     nothing back to the host, so each is captured.  ``_eager`` turns the
     graph off (the card tests).
+
+    ``matvec`` may carry a method ``fused_body(precond, b2, tol2, restarts,
+    max_iters)`` (``schur_packed.PackedSOperator``): a body it returns for
+    this call's ``precond`` and loop condition stands for the body below,
+    the same iteration over the system that ``matvec`` multiplies by (one
+    CUDA kernel on the card); every body then runs it, eager or captured
+    ("fused_bodies").  It returns None where it has no such body.
 
     ``mesh``: the ranks of a multi-device layout, whose polls go through
     ``poll``'s maximum.  ``split``: the vectors are split over the ranks
@@ -344,50 +396,21 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     first_bad = (rz0 <= 0) & (rr0 / b2 > tol2)
     d0 = torch.where(first_bad, r0, z0)
 
-    def cond(k, nbrk, rr):
-        return (nbrk <= restarts) & (k < max_iters) & (rr / b2 > tol2)
+    cond = cg_cond(b2, tol2, restarts, max_iters)
 
-    def body(s: CGState, out: CGState | None = None) -> CGState:
-        """One CG iteration, committed where ``s.active`` holds and frozen
-        elsewhere; written into ``out``'s tensors when given."""
-        Ap = matvec(s.p)
-        pAp = dot(s.p, Ap)
-        curv_ok = pAp > 0
-        alpha = torch.where(curv_ok, s.rz, 0.0) / torch.where(curv_ok, pAp, 1.0)
-        x_n = s.x + alpha * s.p
-        r_n = s.r - alpha * Ap
-        # the best-residual iterate: after a breakdown the last can be far worse
-        rr_n = dot(r_n, r_n)
-        better = rr_n < s.rr_best
-        x_best_n = torch.where(better, x_n, s.x_best)
-        rr_best_n = torch.where(better, rr_n, s.rr_best)
-        z_n = apply_m(r_n)
-        rz_new = dot(r_n, z_n)
-        rz_ok = rz_new > 0
-        healthy = curv_ok & rz_ok
-        # healthy: conjugate update; curvature event: restart p = z;
-        # indefinite preconditioner: restart p = r
-        beta = torch.where(healthy, rz_new, 0.0) / torch.clamp(s.rz, min=tiny)
-        z_eff = torch.where(rz_ok, z_n, r_n)
-        rz_eff = torch.where(rz_ok, rz_new, rr_n)
-        p_n = z_eff + beta * s.p
-        nbrk_n = s.nbrk + (~healthy).to(torch.int32)
-        # commit the body where the loop was still running, freeze it elsewhere
-        new = (x_n, r_n, z_eff, p_n, rz_eff, rr_n, nbrk_n, s.k + 1, x_best_n, rr_best_n)
-        if out is None:
-            t = [torch.where(s.active, n, o) for n, o in zip(new, s)]
-            t.append(s.active & cond(t[7], t[6], t[5]))
-        else:
-            t = [torch.where(s.active, n, o, out=w) for n, o, w in zip(new, s, out)]
-            t.append(torch.bitwise_and(s.active, cond(t[7], t[6], t[5]), out=out.active))
-        return CGState(*t)
+    def unfused(s: CGState, out: CGState | None = None) -> CGState:
+        return cg_step(s, matvec(s.p), apply_m, dot, cond, out)
 
+    make = getattr(matvec, "fused_body", None)
+    fused = None if make is None else make(precond, b2, tol2, restarts, max_iters)
+    body = unfused if fused is None else fused
     k = torch.zeros((), dtype=torch.int32, device=rhs.device)
     nbrk = first_bad.to(torch.int32)
     s = CGState(x0, r0, d0, d0, torch.where(first_bad, rr0, rz0), rr0, nbrk, k, x0, rr0,
                 cond(k, nbrk, rr0))
     graphed = (_GraphedBody(body) if rhs.is_cuda and mesh is None and not _eager
                and max_iters >= CG_GRAPH_MIN_ITERS else None)
+    bodies = 0
     for it in range(max_iters):
         if it % poll_every == 0:
             polls += 1
@@ -398,13 +421,14 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
             graph_bodies += 1
         else:
             s = body(s)
-        matvecs += 1
+        bodies += 1
     breakdown = s.nbrk > 0
     x_out = torch.where(breakdown, s.x_best, s.x)
     rr_out = torch.where(breakdown, s.rr_best, s.rr)
     return x_out, s.k, rr_out / b2, breakdown, {
-        "matvecs": matvecs, "polls": polls, "graph_bodies": graph_bodies,
-        "captures": int(graph_bodies > 0), "events": s.nbrk}
+        "matvecs": matvecs + bodies, "polls": polls, "graph_bodies": graph_bodies,
+        "captures": int(graph_bodies > 0), "fused_bodies": 0 if fused is None else bodies,
+        "events": s.nbrk}
 
 
 def flat_chain_band(blocks: SchurBlocks, g: FactorGraph, mesh=None) -> torch.Tensor:
@@ -448,11 +472,12 @@ def _flat_preconditioner(blocks: SchurBlocks, g: FactorGraph, cfg: SolverConfig,
 
 def cg_stats(n_iters, rel_res2, breakdown, info, device) -> dict:
     """The CG stats of one solve, as device tensors; the host counts are
-    also charged to the open root span as "cg.bodies", "cg.polls" and
-    "cg.graph_bodies"."""
+    also charged to the open root span as "cg.bodies", "cg.polls",
+    "cg.graph_bodies" and "cg.fused_bodies"."""
     count("cg.bodies", info["matvecs"])
     count("cg.polls", info["polls"])
     count("cg.graph_bodies", info["graph_bodies"])
+    count("cg.fused_bodies", info["fused_bodies"])
     return {
         "cg_iters": n_iters,
         "cg_rel_res2": rel_res2,

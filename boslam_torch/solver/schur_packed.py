@@ -10,9 +10,14 @@ windowed kernel (``ops/windowed_gather.py``), one launch per gather: two in
 the build, one for the reduced rhs, one in ``packed_s_diag``, two per
 matvec and one in the back-substitution, so 5 + 2 k per outer iteration
 with k matvecs (LM's cost check adds one; "bband" adds one for its
-assembly).  With ``coupling_dtype="bfloat16"`` the coupling blocks are
-stored bf16 and every contraction with them (``_couple``) rounds the other
-operand to bf16 too and sums in f32, as the JAX package's MXU-native
+assembly).  On the card, a system that ``fused_body_rule`` admits (no
+mesh, block-Jacobi, f32 blocks, a chain odometry) runs each CG body as one
+``ops/pcg_body.py`` call (``PackedSOperator.fused_body``), four launches
+that read both grids through their plans themselves: its bodies launch no
+``windowed_take``.  With
+``coupling_dtype="bfloat16"`` the coupling blocks are stored bf16 and every
+contraction with them (``_couple``) rounds the other operand to bf16 too
+and sums in f32, as the JAX package's MXU-native
 bf16 x bf16 -> f32 einsum; the CG tolerance is then clamped to
 ``BF16_CG_TOL_FLOOR``.
 
@@ -30,6 +35,7 @@ then the step's boxplus: two ranges per step), under the caller's "step".
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -39,12 +45,14 @@ from boslam_torch.geometry.se2 import boxplus_state
 from boslam_torch.graph.data import FactorGraph
 from boslam_torch.graph.packed import PackedEdges
 from boslam_torch.ops.counters import counter
+from boslam_torch.ops.pcg_body import PCGSystem, pcg_body
 from boslam_torch.ops.windowed_gather import WindowPlan, windowed_take
 from boslam_torch.solver.gauss_newton import delta_norm
 from boslam_torch.solver import residuals as R
 from boslam_torch.solver.robust import robust_cost, robust_weights
 from boslam_torch.solver.schur import (
-    _inv2x2, _inv3x3, _nan_guard, _pose_mask, _segment_sum, cg_stats, pcg,
+    CGState, _inv2x2, _inv3x3, _nan_guard, _pose_mask, _segment_sum, cg_cond, cg_stats, cg_step,
+    pcg,
 )
 from boslam_torch.utils.spans import span
 
@@ -396,6 +404,73 @@ def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverCon
     return lambda r: btridiag_solve(factor, r)
 
 
+def fused_body_rule(blocks: PackedBlocks, pk: PackedEdges, precond, row_chunk: int = 0,
+                    mesh=None) -> bool:
+    """Whether the CG body of this system may be one ``ops/pcg_body.py``
+    call: no mesh, the block-Jacobi inverse array as preconditioner, f32
+    coupling blocks, no row chunks and an odometry that is its chain prefix
+    alone.  ``PackedSOperator`` adds the last condition, a CUDA device (its
+    ``fuse``); every other system keeps the body of ``pcg``."""
+    return (mesh is None and isinstance(precond, torch.Tensor)
+            and blocks.Bp.dtype == blocks.Bl.dtype == torch.float32 and row_chunk == 0
+            and pk.chain_len == blocks.Ho_sd.shape[0])
+
+
+def plain_cg_body(blocks: PackedBlocks, pk: PackedEdges, mask, precond, b2, tol2: float,
+                  restarts: int, max_iters: int):
+    """The fused body's plain twin: ``pcg``'s own body (``schur.cg_step``)
+    over ``packed_s_matvec`` under block-Jacobi, on any device; a body
+    (s, out=None) -> CGState."""
+    cond = cg_cond(b2, tol2, restarts, max_iters)
+
+    def body(s: CGState, out: CGState | None = None) -> CGState:
+        return cg_step(s, packed_s_matvec(blocks, pk, s.p, mask),
+                       lambda r: torch.einsum("pij,pj->pi", precond, r),
+                       lambda u, v: torch.sum(u * v), cond, out)
+
+    return body
+
+
+@dataclasses.dataclass
+class PackedSOperator:
+    """The reduced system S of one packed solve as ``pcg`` takes it: called
+    on x, ``packed_s_matvec``; ``fused_body``, ``pcg``'s whole body for a
+    preconditioner and loop condition where ``fuse`` holds (the solver sets
+    it on a CUDA device) and ``fused_body_rule`` admits the system.  On the
+    card that body is one ``pcg_body`` call, which charges the two gathers
+    it makes by route (``gather_counts``); on the CPU it is the plain twin
+    (``plain_cg_body``)."""
+
+    blocks: PackedBlocks
+    pk: PackedEdges
+    mask: torch.Tensor
+    row_chunk: int = 0
+    mesh: object = None
+    fuse: bool = False
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return packed_s_matvec(self.blocks, self.pk, x, self.mask, row_chunk=self.row_chunk,
+                               mesh=self.mesh)
+
+    def fused_body(self, precond, b2, tol2: float, restarts: int, max_iters: int):
+        blocks, pk = self.blocks, self.pk
+        if not (self.fuse and fused_body_rule(blocks, pk, precond, self.row_chunk, self.mesh)):
+            return None
+        if not blocks.Bp.is_cuda:
+            return plain_cg_body(blocks, pk, self.mask, precond, b2, tol2, restarts, max_iters)
+        system = PCGSystem(blocks.Hpp_diag, precond, blocks.Ho_sd, self.mask, blocks.Hll_inv,
+                           blocks.Bp, pk.p_lm, blocks.Bl, pk.l_pose, pk.l_virt, pk.p_plan,
+                           pk.l_plan, b2, tol2, restarts, max_iters)
+        windowed = (pk.p_plan is not None) + (pk.l_plan is not None)
+
+        def body(s: CGState, out: CGState | None = None) -> CGState:
+            _take.windowed += windowed
+            _take.plain += 2 - windowed
+            return CGState(*pcg_body(system, s, out))
+
+        return body
+
+
 def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, damping,
                                  x0=None, kt=None, mesh=None):
     """Full linear solve on the packed layout: (dp, dl, stats, ok).
@@ -422,8 +497,7 @@ def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverCon
         cg_tol = max(cg_tol, BF16_CG_TOL_FLOOR)
     with span("pcg"):
         dp, n_iters, rel_res2, breakdown, info = pcg(
-            lambda x: packed_s_matvec(blocks, pk, x, mask, row_chunk=cfg.matvec_row_chunk,
-                                      mesh=mesh),
+            PackedSOperator(blocks, pk, mask, cfg.matvec_row_chunk, mesh, fuse=g.poses.is_cuda),
             rhs, precond, cfg.cg_iters, cg_tol, x0, restarts=cfg.cg_restarts, mesh=mesh,
         )
     with span("update"):

@@ -29,7 +29,8 @@ TRACE_FILE = "boslam_torch_trace.json"
 # the port's kernels, by the names the profiler gives them
 PORT_KERNELS = ("chol_solve_kernel", "band_solve_kernel", "schur_w_kernel", "schur_s_kernel",
                 "schur_rhs_kernel", "schur_dl_kernel", "gn_edge_kernel", "gn_assemble_kernel",
-                "gn_finish_kernel", "windowed_take_kernel")
+                "gn_finish_kernel", "windowed_take_kernel", "pcg_lm_rows_kernel",
+                "pcg_pose_rows_kernel", "pcg_update_kernel", "pcg_commit_kernel")
 # profiler sessions taken before an empty one counts as a failure: on the
 # H100 a session can come back with no device event at all (once in 20
 # sessions; short sessions after long ones; a one-operator session)

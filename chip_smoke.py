@@ -28,9 +28,15 @@ Then the scale path: the windowed gather against its plain version, to
 the bit, at the 100k corridor graph's slot grids and on edge cases; GN on
 the dual-packed Schur+PCG path with windowed gathers (solve_packed,
 gather="windowed") on 10k and 100k corridor graphs, its launches held to
-5 + 2 per CG matvec per outer iteration and its chi2 to the CPU run and
-the card's plain-gather run; and, on a 10k default walk whose grids the
-planner refuses, packed GN, packed LM, flat schur_cg and a GNC LM run.
+5 + 2 per CG matvec per outer iteration (5 where block-Jacobi makes every
+CG body one pcg_body launch, which reads its gathers itself) and its chi2
+to the CPU run and the card's plain-gather run; and, on a 10k default walk
+whose grids the planner refuses, packed GN, packed LM, flat schur_cg and a
+GNC LM run.  The fused CG body (pcg_body): the benchmark's 10k walk and
+corridor solved as their cells solve them, with one pcg_body launch held
+per CG body; then the kernel held against its plain twin and against the
+loop with its own body on both graphs, and timed alone
+(tools/port_pcg_body_probe.py).
 The two-level preconditioner runs on the 10k corridor (both cycles, held
 to the CPU run) and on the 100k corridor beside block-Jacobi (CG
 breakdowns, iterations, ms and memory per outer iteration).
@@ -727,13 +733,14 @@ def check_windowed(torch, wg, pk, n_poses, n_landmarks, rng):
     return rows
 
 
-def _packed_launches(st, cfg):
+def _packed_launches(st, cfg, fused=False):
     """Windowed-gather launches the packed path makes: 5 + 2 per matvec per
     GN outer iteration (2 in the build, the rhs, diag(S), the
     back-substitution), one more per LM trial (its cost check) and one more
-    under "bband" (its assembly's take of Hll^-1)."""
+    under "bband" (its assembly's take of Hll^-1); ``fused``: every CG body
+    is one ``pcg_body`` call, which reads its two gathers itself."""
     per = 5 + (cfg.optimizer == "lm") + (cfg.preconditioner == "bband")
-    return int(sum(per + 2 * int(m) for m in st["cg_matvecs"]))
+    return int(sum(per + 2 * (not fused) * int(m) for m in st["cg_matvecs"]))
 
 
 def _rel_trace(c, ref):
@@ -749,13 +756,15 @@ def _hold_trace(c, ref, held, label, what):
     return rel
 
 
-def run_packed(torch, solve, g, cfg, counters, label, windowed):
+def run_packed(torch, solve, g, cfg, counters, label, windowed, fused=False):
     """One packed or flat CG path on the card with every count at 0: checks
-    the windowed launches against the formula (0 when not ``windowed``)."""
+    the windowed launches against the formula (0 when not ``windowed``),
+    and one ``pcg_body`` launch per CG body where ``fused`` (block-Jacobi
+    on a chain: ``schur_packed.fused_body_rule``), none elsewhere."""
     g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
-    want = _want(counts)
+    want = _want(counts, pcg_body=int(st["cg_matvecs"].sum()) if fused else 0)
     if windowed:
-        want["windowed_take"] = _packed_launches(st, cfg)
+        want["windowed_take"] = _packed_launches(st, cfg, fused)
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     return g2, st, counts, secs
@@ -836,6 +845,101 @@ def run_bf16(torch, solve_packed, g, cfg, counters, size, f32, f32_name):
         peak_mb=peak / 2**20, peak_mb_f32=f32["max_memory_allocated"] / 2**20,
         bf16=per_outer_run(st, cfg16, secs, peak))))
     return counts["windowed_take"]
+
+
+# The fused CG body against its twin and its own body (tools/port_pcg_body_probe.py,
+# the benchmark's 10k walk and corridor): one body within the probe's
+# bounds against the float64 twin (one_body_misses); pcg to the cap
+# against the eager loop with its own body: the iterate within PCG_CAP_X
+# of its largest entry, the relative residual within PCG_CAP_RES
+# (tests/test_torch_cuda.py holds the same)
+PCG_CAP_X = 0.05
+PCG_CAP_RES = 0.1
+# the benchmark's two cells' graphs, (turn_every, gather): its walk_10k and
+# corridor_10k configurations, generate_sequence(10000, 4000), seed 0
+FUSED_CELLS = {"walk": (50, "auto"), "corridor": (10**9, "windowed")}
+
+
+def run_fused_cells(torch, counters):
+    """The benchmark's two cells as their solves run, on the card with
+    every count at 0: the 10k walk (split landmark rows, plain gathers) and
+    the 10k corridor (both grids windowed), 5 GN outers of block-Jacobi PCG
+    to its cap from the triangulated start.  Held: one ``pcg_body`` launch
+    per CG body, 5 ``windowed_take`` an outer on the corridor and none on
+    the walk, no host wait inside the solve (``run_packed``), chi2 falling.
+    Returns the ``pcg_body`` launches."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.solver.optimizer import solve_packed
+    from boslam_torch.synth import generate_sequence
+
+    launches = 0
+    for kind, (turn_every, gather) in FUSED_CELLS.items():
+        g_cpu, _, _ = _corridor(generate_sequence, build_graph, 10000, 4000, 0, turn_every)
+        cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=5,
+                           cg_iters=100, cg_tol=1e-5, gather=gather)
+        label = f"fused CG body, {kind} 10k"
+        _, st, counts, secs = run_packed(torch, solve_packed, g_cpu.to(DEV), cfg, counters, label,
+                                         gather == "windowed", fused=True)
+        c = st["chi2_robust"]
+        if not (np.isfinite(c).all() and c[-1] < c[0]):
+            raise AssertionError(f"{label}: chi2 {c.tolist()} did not descend")
+        print(f"{label}: " + json.dumps(dict(launches=counts, chi2=c.tolist(),
+                                             **_cg_summary(st, cfg, secs))))
+        launches += counts["pcg_body"]
+    return launches
+
+
+def check_pcg_body(torch, pb, counters, fused_100k):
+    """The fused CG body on the benchmark's 10k walk (split landmark rows,
+    plain gathers) and corridor (both grids windowed): the cells' solves
+    (``run_fused_cells``), then the kernel against its plain twin in one
+    body (and both against the twin in float64), a frozen state kept, two
+    replays bit-equal, ``pcg`` to the cap against the loop with its own
+    body, one body's time alone beside the twin's (CUDA events over graph
+    replays) and its bound.  Returns the kernel table's row (the walk's
+    shape and times; the launches of the cells' solves and of the 100k
+    corridor's, ``fused_100k``)."""
+    from boslam_torch.utils import roofline
+
+    t0 = time.perf_counter()
+    launches = run_fused_cells(torch, counters) + fused_100k
+    probe = _tool("port_pcg_body_probe")
+    spec = roofline.chip_spec()
+    rows = {}
+    for kind in ("walk", "corridor"):
+        rec = probe.run_graph(kind, 10000, 0, DEV)
+        for where in ("start", "mid_chain"):
+            one = rec[where]
+            if not one["same_counts"] or probe.one_body_misses(one):
+                raise AssertionError(f"pcg_body {kind} {where}: {one}")
+        p = rec["pcg"]
+        res = p["rel_res2"][1] / p["rel_res2"][0]
+        if not (rec["frozen_kept"] and rec["replays_bitwise"] and p["iters"][0] == p["iters"][1]
+                and p["x"] <= PCG_CAP_X and abs(res - 1) <= PCG_CAP_RES
+                and p["fused_bodies"] == p["iters"][1] == p["graph_bodies"] + 1):
+            raise AssertionError(f"pcg_body {kind}: {rec}")
+        split = rec["split_rows"]
+        fmas, nbytes = roofline.pcg_body_work(rec["poses"], rec["landmarks"],
+                                              rec["landmark_rows"], *rec["slots"],
+                                              rec["poses"] - 1, split)
+        rec["bound_ms"], rec["bound_by"] = roofline.bound_ms(fmas, nbytes, spec)
+        print(f"pcg_body {kind}: " + json.dumps(rec))
+        rows[kind] = rec
+    walk = rows["walk"]
+    blocks, pk, mask, precond, rhs, _ = probe.packed_system("walk", 10000, 0, DEV)
+    system = probe.bind(blocks, pk, mask, precond, rhs)[0]
+    state = probe.start_state(precond, rhs)
+    per_call = launches_per_call(lambda: pb.pcg_body(system, state, state))
+    print(f"phase pcg_body: {time.perf_counter() - t0:.1f} s wall")
+    return dict(launches=launches,
+                ap_gap=max(walk["start"]["Ap"], walk["mid_chain"]["Ap"]),
+                ms=walk["ms_alone"]["kernel"], plain_ms=walk["ms_alone"]["twin"],
+                bound_ms=walk["bound_ms"], bound_by=walk["bound_by"], library_ms=None,
+                launches_per_call=per_call,
+                shape=[walk["poses"], walk["landmark_rows"]] + walk["slots"],
+                corridor_ms=rows["corridor"]["ms_alone"]["kernel"],
+                corridor_plain_ms=rows["corridor"]["ms_alone"]["twin"])
 
 
 def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph, SolverConfig):
@@ -930,17 +1034,20 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
                          per_outer_run(st2, cfg, secs2, peak2), "btridiag")
     print(f"phase bband + bf16 10k: {time.perf_counter() - t0:.1f} s wall")
 
-    # ---- phase 3: packed-windowed 100k corridor, GN, "auto" = block-Jacobi ----
+    # ---- phase 3: packed-windowed 100k corridor, GN, "auto" = block-Jacobi,
+    # every CG body one pcg_body call ----
     t0 = time.perf_counter()
     g = g100_cpu.to(DEV)
     cfg = SolverConfig(linear_solver="schur_cg", gather="windowed", iters=5)
     torch.cuda.reset_peak_memory_stats()
     g2, st, counts, secs = run_packed(torch, solve_packed, g, cfg, counters, "packed-windowed 100k",
-                                      True)
+                                      True, fused=True)
     peak = torch.cuda.max_memory_allocated()
     launches += counts["windowed_take"]
-    _, st_t, _, secs_t = run_packed(torch, solve_packed, g, cfg.replace(gather="take"), counters,
-                                    "packed-take 100k", False)
+    fused_launches = counts["pcg_body"]
+    _, st_t, counts_t, secs_t = run_packed(torch, solve_packed, g, cfg.replace(gather="take"),
+                                           counters, "packed-take 100k", False, fused=True)
+    fused_launches += counts_t["pcg_body"]
     # CG breaks down in every outer iteration here (block-Jacobi, as in the
     # JAX package): the trace after iteration 0 is not reproducible under a
     # change of summation order (PERF.md), so only iteration 0 is held
@@ -950,7 +1057,8 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
         raise AssertionError(f"packed-windowed 100k: chi2 {c.tolist()} did not descend")
     print("packed-windowed 100k: " + json.dumps(dict(
         graph=[g.n_poses, g.n_landmarks, g.n_bearing, g.n_odometry], seed=BIG[2],
-        launches=counts["windowed_take"], launches_expected=_packed_launches(st, cfg),
+        launches=counts["windowed_take"], launches_expected=_packed_launches(st, cfg, True),
+        pcg_body_launches=counts["pcg_body"],
         chi2=c.tolist(), chi2_take=st_t["chi2_robust"].tolist(), rel_vs_take=rel_take.tolist(),
         breakdown=st["cg_breakdown"].tolist(), breakdown_take=st_t["cg_breakdown"].tolist(),
         ms_per_outer_take=secs_t / cfg.iters * 1e3, max_memory_allocated=peak,
@@ -1025,7 +1133,7 @@ def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph,
         launches=counts, kt=st["kt"].tolist(), chi2=st["chi2_robust"].tolist(),
         accepted=st["accepted"].astype(int).tolist(), **_cg_summary(st, cfg, secs))))
     print(f"phase default walk: {time.perf_counter() - t0:.1f} s wall")
-    return rows[("landmark grid", 3)], launches
+    return rows[("landmark grid", 3)], launches, fused_launches
 
 
 def _held_coarse(label, info, info_ref):
@@ -1282,9 +1390,10 @@ def run_bench_phase(torch, generate_sequence, chi2_fused):
 # PERF.md section 6's bounds of the four kernels on an H100 SXM (67 TFLOP/s
 # f32, 3.35 TB/s), to three significant figures: the Cholesky at the graph's
 # dense system (n = 1280), the Schur solve and the whole step on the
-# 301/141 graph's envelope, the gather on the 100k corridor's landmark grid
+# 301/141 graph's envelope, the gather on the 100k corridor's landmark grid,
+# one fused CG body on the 10k walk
 TABLE_BOUNDS_SXM = {"cholesky_solve_padded": 0.0105, "fused_schur_solve_blocks": 0.0000423,
-                    "fused_gn_step": 0.0000497, "windowed_take": 0.00478}
+                    "fused_gn_step": 0.0000497, "windowed_take": 0.00478, "pcg_body": 0.0021}
 # the kernel each A/B path launches, 50 times in a run; the CG paths none
 AB_LAUNCHES = {"dense": "cholesky", "schur": "schur", "schur_fused": "gn_step"}
 
@@ -1861,6 +1970,7 @@ def main() -> int:
     from boslam_torch.ops import _build
     from boslam_torch.ops import cholesky as chol
     from boslam_torch.ops import gn_step as gs
+    from boslam_torch.ops import pcg_body as pb
     from boslam_torch.ops import schur_solve as ss
     from boslam_torch.ops import windowed_gather as wg
     from boslam_torch.solver import schur
@@ -1967,7 +2077,8 @@ def main() -> int:
     del g_cap
 
     counters = {"cholesky": chol.cholesky_solve_padded, "schur": ss.fused_schur_solve_blocks,
-                "gn_step": gs.fused_gn_step, "windowed_take": wg.windowed_take}
+                "gn_step": gs.fused_gn_step, "windowed_take": wg.windowed_take,
+                "pcg_body": pb.pcg_body}
 
     # ---- gn-schur: GN under the exact Schur solve, the whole-step kernel off ----
     g_cpu_s, st_cpu = solve(g_cpu, cfg_s)
@@ -2045,8 +2156,9 @@ def main() -> int:
     for label, cfg in (("gn-schur", cfg_s), ("gn-dense", cfg_d), ("gn-fused", cfg_f)):
         print(f"profile {label}: " + json.dumps(profile_path(solve, g, cfg)))
 
-    win_row, win_launches = run_scale_phases(torch, wg, counters, solve, generate_sequence,
+    win_row, win_launches, fused_100k = run_scale_phases(torch, wg, counters, solve, generate_sequence,
                                              build_graph, SolverConfig)
+    pcg_row = check_pcg_body(torch, pb, counters, fused_100k)
     run_survey_phase(torch, counters, build_graph, generate_sequence, SolverConfig)
     run_native_phase(generate_sequence)
     t0 = time.perf_counter()
@@ -2062,7 +2174,8 @@ def main() -> int:
          "schur_fused": chi2_schur_cpu},
         {"cholesky_solve_padded": chol_main["bound_ms"],
          "fused_schur_solve_blocks": schur_main["bound_ms"],
-         "fused_gn_step": gn_main["bound_ms"], "windowed_take": win_row["bound_ms"]})
+         "fused_gn_step": gn_main["bound_ms"], "windowed_take": win_row["bound_ms"],
+         "pcg_body": pcg_row["bound_ms"]})
     run_trace_split_phase(torch, g_cpu)
     t0 = time.perf_counter()
     st_cpu_l = _stats(solve(g_cpu, cfg_lm)[1])
@@ -2110,6 +2223,10 @@ def main() -> int:
              shape=win_row["shape"],
              path="packed-windowed 10k + 100k, btridiag, two_level, block-Jacobi, bband and "
                   "bf16 coupling (landmark grid of the 100k corridor)"),
+        dict(name="pcg_body", route="cuda", source="boslam_torch/ops/csrc/pcg_body.cu",
+             replaces=None, **pcg_row,
+             path="packed block-Jacobi CG on a chain: the benchmark's 10k walk (plain) and "
+                  "corridor (windowed) solves, the 100k corridor"),
     ]
     if not all(k["launches"] > 0 and k["launches_per_call"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched: {kernels}")

@@ -9,6 +9,7 @@ count; whole flat solves as the packed ones (tests/test_torch_packed.py).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -281,14 +282,15 @@ def test_pcg_body_matches_the_loop_before_it(poll_every, warm, precond):
             assert torch.equal(g_, w_)
         info, info_w = got[4], want[4]
         assert torch.equal(info.pop("events"), info_w.pop("events"))
-        assert info == {**info_w, "graph_bodies": 0, "captures": 0}
+        assert info == {**info_w, "graph_bodies": 0, "captures": 0, "fused_bodies": 0}
 
 
 def test_every_kernel_counter_is_registered():
     """``ops.counters`` reads and charges every kernel wrapper's launch
-    counters, the band route's too, and the packed gathers' route counters,
-    in the order they were registered."""
-    from boslam_torch.ops import cholesky, counters, gn_step, schur_solve, windowed_gather
+    counters, the band route's too, the fused CG body's, and the packed
+    gathers' route counters, in the order they were registered."""
+    from boslam_torch.ops import cholesky, counters, gn_step, pcg_body, schur_solve
+    from boslam_torch.ops import windowed_gather
     from boslam_torch.solver import schur_packed
 
     assert set(counters._COUNTERS) == {
@@ -296,6 +298,7 @@ def test_every_kernel_counter_is_registered():
         (schur_solve.fused_schur_solve_blocks, "launches"),
         (schur_solve.fused_schur_solve_blocks, "band_launches"),
         (gn_step.fused_gn_step, "launches"), (gn_step.fused_gn_step, "band_launches"),
+        (pcg_body.pcg_body, "launches"),
         (schur_packed._take, "windowed"), (schur_packed._take, "plain")}
     before = counters.read()
     i = counters._COUNTERS.index((windowed_gather.windowed_take, "launches"))
@@ -410,3 +413,158 @@ def test_two_level_cuts_cg_iterations():
         tl_iters = int(fn(g, base.replace(preconditioner="two_level"))[1]["cg_iters"].sum())
         bj_iters = int(fn(g, base.replace(preconditioner="block_jacobi"))[1]["cg_iters"].sum())
         assert tl_iters < bj_iters, (fn.__name__, tl_iters, bj_iters)
+
+
+# ---- the fused block-Jacobi body (ops/pcg_body.py) on the packed system ----
+
+@functools.lru_cache(maxsize=None)
+def _packed_graph(corridor: bool):
+    """A 1200-pose packed graph on the CPU: a walk, whose landmark rows are
+    split and whose grids gather plainly, or a corridor, relabeled so that
+    the planner accepts both grids' windows."""
+    from boslam_torch.graph.packed import pack_edges
+    from boslam_torch.graph.reorder import reorder_landmarks_by_pose
+    from boslam_torch.synth import generate_sequence as generate_sequence_torch
+
+    ig, _ = generate_sequence_torch(1200, 480, seed=3,
+                                    **({"turn_every": 10**9} if corridor else {}))
+    g = build_graph(ig, init="triangulate", device="cpu")[0]
+    if corridor:
+        g = reorder_landmarks_by_pose(g)[0]
+    pk, _ = pack_edges(g, windows=corridor)
+    assert (pk.l_virt is None) == corridor
+    assert (pk.p_plan is not None and pk.l_plan is not None) == corridor
+    return g, pk
+
+
+def _packed_system(corridor: bool, variant: str = "plain"):
+    """(blocks, pk, mask, precond, rhs) of the packed system at the graph's
+    state under block-Jacobi.  ``variant``: "fixed_mid" pins a pose in the
+    middle of the chain (the gauge mask's 0 there), "indefinite" negates a
+    third of the preconditioner's blocks (r^T z <= 0: restarts from r),
+    "curvature" shifts the pose blocks down so that S is indefinite
+    (p^T A p <= 0: restarts from z)."""
+    from boslam_torch.solver import schur_packed as sp
+
+    g, pk = _packed_graph(corridor)
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi")
+    blocks, _ = sp.build_packed_blocks(g, pk, cfg, cfg.damping)
+    mask = sp._pose_mask(g.n_poses, g.fixed_pose_ix, torch.float32)
+    if variant == "fixed_mid":
+        mask = torch.ones_like(mask)
+        mask[g.n_poses // 2] = 0.0
+    if variant == "curvature":
+        shift = blocks.Hpp_diag.diagonal(dim1=1, dim2=2).median()
+        blocks = blocks._replace(Hpp_diag=blocks.Hpp_diag - shift * torch.eye(3))
+    precond = sp._packed_preconditioner(blocks, pk, cfg, mask)
+    if variant == "indefinite":
+        precond = precond.clone()
+        precond[: g.n_poses // 3] *= -1.0
+    rhs = torch.from_numpy(np.random.default_rng(5).standard_normal((g.n_poses, 3))
+                           .astype(np.float32)) * mask
+    return blocks, pk, mask, precond, rhs
+
+
+@pytest.mark.parametrize("variant", ["plain", "fixed_mid", "indefinite", "curvature"])
+@pytest.mark.parametrize("corridor", [False, True], ids=["walk", "corridor"])
+def test_fused_twin_matches_the_body(corridor, variant):
+    """``pcg`` with the fused body's plain twin against ``pcg`` with its own
+    body over ``packed_s_matvec``, on a walk (split landmark rows, plain
+    gathers) and a corridor (both grids through their windows): one body
+    and a short loop give the same bits of x, n_iters, rel_res2,
+    breakdown and events, the same host counts, every body fused, and the
+    gathers charged two per body by route; the restart variants do
+    restart."""
+    from boslam_torch.solver import schur_packed as sp
+
+    blocks, pk, mask, precond, rhs = _packed_system(corridor, variant)
+    mv = lambda x: sp.packed_s_matvec(blocks, pk, x, mask)  # noqa: E731
+    op = sp.PackedSOperator(blocks, pk, mask, fuse=True)
+    for cap in (1, 25):
+        want = schur.pcg(mv, rhs, precond, cap, 1e-12, restarts=3)
+        before = sp.gather_counts()
+        got = schur.pcg(op, rhs, precond, cap, 1e-12, restarts=3)
+        counted = [a - b for a, b in zip(sp.gather_counts(), before)]
+        for g_, w_ in zip(got[:4], want[:4]):
+            assert torch.equal(g_, w_)
+        info, info_w = dict(got[4]), dict(want[4])
+        assert torch.equal(info.pop("events"), info_w.pop("events"))
+        assert info == {**info_w, "fused_bodies": info_w["matvecs"]} and info_w["fused_bodies"] == 0
+        bodies = info["matvecs"]
+        assert counted == ([2 * bodies, 0] if corridor else [0, 2 * bodies])
+    if variant in ("indefinite", "curvature"):
+        assert int(got[4]["events"]) > 0
+
+
+@pytest.mark.parametrize("corridor", [False, True], ids=["walk", "corridor"])
+def test_fused_twin_frozen_state(corridor):
+    """A body whose state is no longer active changes none of the eleven
+    tensors, into new tensors or in place; on the CPU the fused body is the
+    plain twin, and the kernel's system refuses CPU tensors."""
+    from boslam_torch.ops import pcg_body as pb
+    from boslam_torch.solver import schur_packed as sp
+
+    blocks, pk, mask, precond, rhs = _packed_system(corridor)
+    b2 = torch.sum(rhs * rhs)
+    body = sp.PackedSOperator(blocks, pk, mask, fuse=True).fused_body(precond, b2, 1e-10, 3, 50)
+    z = torch.einsum("pij,pj->pi", precond, rhs)
+    s = schur.CGState(torch.zeros_like(rhs), rhs, z, z, torch.sum(rhs * z), b2,
+                      torch.zeros((), dtype=torch.int32), torch.zeros((), dtype=torch.int32),
+                      torch.zeros_like(rhs), b2, torch.ones((), dtype=torch.bool))
+    for _ in range(3):
+        s = body(s)
+    assert torch.equal(s.k, torch.tensor(3, dtype=torch.int32)) and bool(s.active)
+    frozen = s._replace(active=torch.zeros((), dtype=torch.bool))
+    for out in (None, schur.CGState(*(t.clone() for t in frozen))):
+        new = body(frozen, out=out)
+        for a, b in zip(new, frozen):
+            assert torch.equal(a, b)
+        if out is not None:
+            assert all(a is b for a, b in zip(new, out))
+    # the twin is what the body runs on the CPU
+    twin = sp.plain_cg_body(blocks, pk, mask, precond, b2, 1e-10, 3, 50)
+    for a, b in zip(twin(s), body(s)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pb.PCGSystem(blocks.Hpp_diag, precond, blocks.Ho_sd, mask, blocks.Hll_inv, blocks.Bp,
+                     pk.p_lm, blocks.Bl, pk.l_pose, pk.l_virt, pk.p_plan, pk.l_plan, b2,
+                     1e-10, 3, 50)
+
+
+def test_fused_body_rule():
+    """The fused body is chosen from what the solver sees: on a chain
+    odometry with f32 blocks, no mesh, no row chunks and the block-Jacobi
+    inverse array, and nowhere else (btridiag's apply, bf16 blocks, a mesh,
+    row chunks, edges past the chain prefix); the operator offers a body
+    only where the rule holds and ``fuse`` is set, which the solver sets on
+    the card alone, so the CPU keeps the body of ``pcg``."""
+    import dataclasses as dc
+
+    from boslam_torch.solver import schur_packed as sp
+    from boslam_torch.solver.optimizer import solve_packed
+
+    for corridor in (False, True):
+        blocks, pk, mask, precond, _ = _packed_system(corridor)
+        rule = sp.fused_body_rule
+        assert rule(blocks, pk, precond, 0, None)
+        cfg = SolverConfig(linear_solver="schur_cg", preconditioner="btridiag")
+        bt = sp._packed_preconditioner(blocks, pk, cfg, mask)
+        assert not rule(blocks, pk, bt, 0, None)
+        bf16 = blocks._replace(Bp=blocks.Bp.to(torch.bfloat16), Bl=blocks.Bl.to(torch.bfloat16))
+        assert not rule(bf16, pk, precond, 0, None)
+        assert not rule(blocks, pk, precond, 0, object())
+        assert not rule(blocks, pk, precond, 64, None)
+        assert not rule(blocks, dc.replace(pk, chain_len=pk.chain_len - 1), precond, 0, None)
+        b2 = torch.ones(())
+        for fuse, pre, chunk in ((True, precond, 0), (False, precond, 0), (True, bt, 0),
+                                 (True, precond, 64)):
+            op = sp.PackedSOperator(blocks, pk, mask, chunk, fuse=fuse)
+            body = op.fused_body(pre, b2, 1e-10, 0, 10)
+            assert (body is not None) == (fuse and pre is precond and not chunk)
+    g, _ = _packed_graph(False)
+    from boslam_torch.utils import spans
+
+    solve_packed(g, SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi",
+                                 iters=1, cg_iters=5))
+    rec = [r for r in spans.records() if r.name == "solve_packed"][-1]
+    assert rec.counters["cg.fused_bodies"] == 0 < rec.counters["cg.bodies"]

@@ -980,22 +980,25 @@ def test_replayed_corridor_solve_counts_the_gathers_routes(cuda, monkeypatch):
     """A replay charges the gathers' route counters what the captured body
     counted, the capture nothing: after a captured solve of the 10k corridor
     "gather.windowed" and "gather.plain" equal the eager solve's, every
-    gather is windowed, 5 + 2 k per outer (k matvecs), and each was one
-    launch of ``windowed_take``."""
+    gather is windowed, 5 + 2 k per outer (k matvecs); the 5 outside the CG
+    loop are each one launch of ``windowed_take``, and the 2 of each body
+    are read by the fused body, one ``pcg_body`` launch a body."""
     from boslam_torch.config import SolverConfig
-    from boslam_torch.ops import counters
+    from boslam_torch.ops import counters, pcg_body as pb
     from boslam_torch.ops import windowed_gather as wg
 
     g = _corridor_10k(cuda)
     cfg = SolverConfig(**CORRIDOR_CELL)
     runs = _corridor_solves(monkeypatch, g, cfg)
     launches = counters._COUNTERS.index((wg.windowed_take, "launches"))
+    fused = counters._COUNTERS.index((pb.pcg_body, "launches"))
     for _, st, rec, counted in runs:
         bodies = int(st["cg_matvecs"].sum())
-        assert rec["gather.windowed"] == 5 * cfg.iters + 2 * bodies == counted[launches]
-        assert rec["gather.plain"] == 0
+        assert rec["gather.windowed"] == 5 * cfg.iters + 2 * bodies
+        assert counted[launches] == 5 * cfg.iters and counted[fused] == bodies
+        assert rec["gather.plain"] == 0 and rec["cg.fused_bodies"] == rec["cg.bodies"] == bodies
     (_, _, eager, counted_e), (_, _, graphed, counted_g) = runs
-    routes = ("gather.windowed", "gather.plain", "cg.bodies")
+    routes = ("gather.windowed", "gather.plain", "cg.bodies", "cg.fused_bodies")
     assert {k: eager[k] for k in routes} == {k: graphed[k] for k in routes}
     assert counted_e == counted_g and graphed["cg.graph_bodies"] > 0
 
@@ -1074,3 +1077,238 @@ def test_profiler_sees_the_replayed_bodies(cuda, monkeypatch):
     assert captured.n_ops - eager.n_ops == sum(extra.values()) <= budget, extra
     pcg_ops = [tr.by_span["solve_packed/step/pcg"][1] for tr in (captured, eager)]
     assert 0 <= pcg_ops[0] - pcg_ops[1] <= budget
+
+
+# ---- the fused block-Jacobi CG body (ops/pcg_body.py) ----
+
+def _pcg_body_probe():
+    """``tools/port_pcg_body_probe.py`` as a module (its helpers build the
+    benchmark's packed systems and compare one body)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "port_pcg_body_probe.py")
+    spec = importlib.util.spec_from_file_location("port_pcg_body_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_PACKED_10K = {}
+
+
+def _packed_10k(kind):
+    """The first GN outer's packed system of the benchmark's 10k walk (split
+    landmark rows, plain gathers) or corridor (both grids windowed), block-
+    Jacobi: (blocks, pk, mask, precond, rhs, graph), built once per run."""
+    if kind not in _PACKED_10K:
+        _PACKED_10K[kind] = _pcg_body_probe().packed_system(kind, 10000, 0, "cuda")
+    return _PACKED_10K[kind]
+
+
+# ``pcg`` to the cap (100, cg_tol 1e-5), the fused body captured against
+# its own body eager on the 10k graphs: the iterate's gap over its largest
+# entry, and the ratio of the relative residuals (PERF.md section 6)
+PCG_CAP_X = 0.05
+PCG_CAP_RES = 0.1
+
+
+@pytest.mark.parametrize("kind", ["walk", "corridor"])
+def test_fused_body_one_body_on_the_card(cuda, kind):
+    """The kernel's body from the start state and from a mid-loop state
+    with a fixed pose mid-chain, both against the twin in float64 within
+    the probe's bounds (``one_body_misses``: the bulk of A p, x, r, z, p and
+    x_best as near as the f32 twin's, the scalars within 1e-3), the counts
+    equal; a frozen state kept to the bit; two replays of one captured body
+    bit-equal."""
+    probe = _pcg_body_probe()
+    blocks, pk, mask, precond, rhs, g = _packed_10k(kind)
+    assert (pk.l_virt is not None) == (kind == "walk")
+    assert (pk.p_plan is not None and pk.l_plan is not None) == (kind == "corridor")
+    bound = probe.bind(blocks, pk, mask, precond, rhs)
+    mid = torch.ones_like(mask)
+    mid[g.n_poses // 2] = 0.0
+    bound_m = probe.bind(blocks, pk, mid, precond, rhs * mid)
+    system_m, twin_m = bound_m[:2]
+    from boslam_torch.ops.pcg_body import pcg_body
+    from boslam_torch.solver.schur import CGState
+
+    s = probe.start_state(precond, rhs * mid)
+    for _ in range(10):
+        s = twin_m(s)
+    for label, b, st, m in (("start", bound, probe.start_state(precond, rhs), mask),
+                            ("mid_chain", bound_m, s, mid)):
+        rec = probe.one_body(b, st, blocks, pk, m)
+        assert rec["same_counts"] and not probe.one_body_misses(rec), (label, rec)
+    frozen = s._replace(active=torch.zeros_like(s.active))
+    for out in (None, CGState(*(t.clone() for t in frozen))):
+        for a, b in zip(pcg_body(system_m, frozen, out), frozen):
+            assert torch.equal(a, b)
+    state = CGState(*(t.clone() for t in s))
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        pcg_body(system_m, state, state)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    outs = []
+    for _ in range(2):
+        for t, t0 in zip(state, s):
+            t.copy_(t0)
+        graph.replay()
+        outs.append([t.clone() for t in state])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert not torch.equal(outs[0][0], s.x)
+
+
+@pytest.mark.parametrize("kind", ["walk", "corridor"])
+def test_fused_pcg_to_the_cap_on_the_card(cuda, kind):
+    """``pcg`` with the fused body, captured, against ``pcg`` with its own
+    body, eager, to the cap of the benchmark's cells: the same iteration
+    count and breakdown, the residual within ``PCG_CAP_RES`` and the
+    iterate within ``PCG_CAP_X``; every body fused, all but the first
+    replayed."""
+    from boslam_torch.solver import schur
+    from boslam_torch.solver import schur_packed as sp
+
+    blocks, pk, mask, precond, rhs, _ = _packed_10k(kind)
+    mv = lambda x: sp.packed_s_matvec(blocks, pk, x, mask)  # noqa: E731
+    want = schur.pcg(mv, rhs, precond, 100, 1e-5, _eager=True)
+    got = schur.pcg(sp.PackedSOperator(blocks, pk, mask, fuse=True), rhs, precond, 100, 1e-5)
+    x_gap = _pcg_body_probe().gap(got[0], want[0])
+    res = float(got[2]) / float(want[2])
+    assert int(got[1]) == int(want[1]) and bool(got[3]) == bool(want[3])
+    assert x_gap <= PCG_CAP_X and abs(res - 1) <= PCG_CAP_RES, (x_gap, res)
+    info = got[4]
+    assert info["fused_bodies"] == info["matvecs"] == info["graph_bodies"] + 1
+    assert want[4]["fused_bodies"] == 0
+
+
+@pytest.mark.parametrize("variant", ["indefinite", "curvature"])
+def test_fused_body_restarts_on_the_card(cuda, variant):
+    """The restart paths on the corridor's system: an indefinite apply
+    (a third of the block-Jacobi blocks negated) and a curvature breakdown
+    (the pose blocks shifted down, S indefinite): the fused loop breaks down
+    as the loop with its own body does, the same events and iterations,
+    and returns its best iterate within ``PCG_CAP_X``."""
+    from boslam_torch.solver import schur
+    from boslam_torch.solver import schur_packed as sp
+
+    blocks, pk, mask, precond, rhs, _ = _packed_10k("corridor")
+    if variant == "indefinite":
+        precond = precond.clone()
+        precond[: precond.shape[0] // 3] *= -1.0
+    else:
+        shift = blocks.Hpp_diag.diagonal(dim1=1, dim2=2).median()
+        blocks = blocks._replace(
+            Hpp_diag=blocks.Hpp_diag - shift * torch.eye(3, device=rhs.device))
+    mv = lambda x: sp.packed_s_matvec(blocks, pk, x, mask)  # noqa: E731
+    want = schur.pcg(mv, rhs, precond, 25, 1e-12, restarts=3, _eager=True)
+    got = schur.pcg(sp.PackedSOperator(blocks, pk, mask, fuse=True), rhs, precond, 25, 1e-12,
+                    restarts=3)
+    assert bool(want[3]) and int(want[4]["events"]) > 0
+    assert int(got[4]["events"]) == int(want[4]["events"])
+    assert int(got[1]) == int(want[1]) and bool(got[3])
+    x_gap = _pcg_body_probe().gap(got[0], want[0])
+    assert x_gap <= PCG_CAP_X, x_gap
+
+
+def test_fused_body_refuses_a_plan_it_cannot_read(cuda):
+    """A plan whose row tiles are not whole blocks of the kernel's rows, or
+    whose window it cannot stage, fails loudly at the launch (the kernel's
+    own check): the solver does not fall back to another body."""
+    import dataclasses as dc
+
+    from boslam_torch.ops import pcg_body as pb
+    from boslam_torch.solver import schur
+    from boslam_torch.solver import schur_packed as sp
+
+    blocks, pk, mask, precond, rhs, _ = _packed_10k("corridor")
+    plan = pk.l_plan
+    rows = pk.l_pose.shape[0]
+    odd = dc.replace(plan, tile_rows=48, starts=torch.zeros(-(-rows // 48), dtype=torch.int32,
+                                                            device=rhs.device))
+    for bad in (odd, dc.replace(plan, window=2048)):
+        op = sp.PackedSOperator(blocks, dc.replace(pk, l_plan=bad), mask, fuse=True)
+        before = pb.pcg_body.launches
+        with pytest.raises(RuntimeError, match="pcg_body"):
+            schur.pcg(op, rhs, precond, 10, 1e-5)
+        assert pb.pcg_body.launches == before
+
+
+def test_fused_body_counts_on_the_card(cuda, monkeypatch):
+    """On the 10k walk (plain gathers) a captured solve counts what an eager
+    one does: one ``pcg_body`` launch a body, the gathers' route counters
+    4 + 2 k plain per outer, "cg.fused_bodies" equal to "cg.bodies", and no
+    ``windowed_take``."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.graph.build import build_graph
+    from boslam_torch.ops import counters, pcg_body as pb
+    from boslam_torch.ops import windowed_gather as wg
+    from boslam_torch.solver import schur, schur_packed
+    from boslam_torch.solver.optimizer import solve_packed
+    from boslam_torch.synth import generate_sequence
+    from boslam_torch.utils import spans
+
+    ig, _ = generate_sequence(10000, 4000, seed=0)
+    g = build_graph(ig, init="triangulate", device=cuda)[0]
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=2,
+                       cg_iters=40, cg_tol=1e-5)
+    seen = []
+    for eager in (True, False):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(schur_packed, "pcg", lambda *a, **kw: schur.pcg(*a, **kw, _eager=True))
+            before = counters.read()
+            _, st = solve_packed(g, cfg)
+            torch.cuda.synchronize()
+            counted = dict(zip(counters._COUNTERS, (a - b for a, b in zip(counters.read(),
+                                                                         before))))
+        rec = [r for r in spans.records() if r.name == "solve_packed"][-1].counters
+        bodies = int(st["cg_matvecs"].sum())
+        assert counted[(pb.pcg_body, "launches")] == bodies == rec["cg.fused_bodies"]
+        assert rec["cg.bodies"] == bodies and counted[(wg.windowed_take, "launches")] == 0
+        assert rec["gather.plain"] == 4 * cfg.iters + 2 * bodies and rec["gather.windowed"] == 0
+        seen.append((counted, {k: rec[k] for k in ("gather.plain", "cg.bodies",
+                                                   "cg.fused_bodies")}))
+    assert seen[0] == seen[1]
+
+
+def test_no_fused_body_off_its_systems(cuda):
+    """CUDA solves outside the fused body's systems launch no ``pcg_body``
+    and count no fused body: btridiag, bf16 coupling blocks, row chunks, an
+    odometry with loop closures past the chain, and a one-rank mesh (the
+    sharded packed layout)."""
+    import torch.distributed as dist
+
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.ops import pcg_body as pb
+    from boslam_torch.parallel.mesh import make_mesh
+    from boslam_torch.parallel.sharded_packed import sharded_packed_solve
+    from boslam_torch.solver.optimizer import solve_packed
+    from boslam_torch.utils import spans
+
+    g = _graph(2000, 800, cuda)
+    bj = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=2,
+                      cg_iters=20)
+    before = pb.pcg_body.launches
+    solve_packed(g, bj)
+    assert pb.pcg_body.launches > before  # the rule's system takes it
+    runs = [(g, bj.replace(preconditioner="btridiag")),
+            (g, bj.replace(coupling_dtype="bfloat16")),
+            (g, bj.replace(matvec_row_chunk=256)),
+            (_graph(2000, 800, cuda, loop_closures=8), bj)]
+    for graph, cfg in runs:
+        before = pb.pcg_body.launches
+        solve_packed(graph, cfg)
+        rec = [r for r in spans.records() if r.name == "solve_packed"][-1].counters
+        assert pb.pcg_body.launches == before and rec["cg.fused_bodies"] == 0, cfg
+    mesh = make_mesh("cuda")
+    try:
+        before = pb.pcg_body.launches
+        sharded_packed_solve(g, bj, mesh)
+        assert pb.pcg_body.launches == before
+    finally:
+        dist.destroy_process_group()

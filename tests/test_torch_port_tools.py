@@ -123,3 +123,30 @@ def test_mesh_sweep():
     # half the slots per rank at D = 2, up to the padding to a multiple of D
     assert recs[1]["work_fraction"] < 0.6
     assert recs[1]["slots_on_rank0"] < 0.6 * recs[0]["slots_on_rank0"]
+
+
+def test_pcg_body_probe():
+    """``tools/port_pcg_body_probe.py`` on the CPU, at 600 poses: a walk
+    with split landmark rows and a corridor with both grids planned, where
+    the twin stands for the kernel (every gap between the two 0, the float64
+    bounds of ``one_body_misses`` met), the frozen state kept, and ``pcg``
+    with the fused body giving its own body's bits; nothing is timed."""
+    sys.path.insert(0, TOOLS)
+    try:
+        import port_pcg_body_probe as probe
+    finally:
+        sys.path.remove(TOOLS)
+    recs = [json.loads(line) for line in _run("port_pcg_body_probe.py", "--poses", "600",
+                                              "--seed", "3").splitlines()]
+    assert [r["graph"] for r in recs] == ["walk", "corridor"]
+    assert [r["split_rows"] for r in recs] == [True, False]
+    assert recs[0]["plans"] == [None, None] and None not in recs[1]["plans"]
+    for r in recs:
+        for where in ("start", "mid_chain"):
+            one = r[where]
+            assert one["same_counts"] and not probe.one_body_misses(one)
+            assert all(v == 0.0 for k, v in one.items() if k not in ("same_counts", "f64"))
+        assert r["frozen_kept"] and "ms_alone" not in r
+        p = r["pcg"]
+        assert p["x"] == 0.0 and p["rel_res2"][0] == p["rel_res2"][1]
+        assert p["iters"][0] == p["iters"][1] and p["fused_bodies"] >= p["iters"][1]

@@ -114,3 +114,14 @@ def test_kernel_bounds_match_the_kernel_table():
     assert _table(R.bound_ms(*R.schur_solve_dense_work(1280, 512), spec)[0]) == 0.0231
     ms, by = R.bound_ms(0.0, R.windowed_take_bytes(38563, 24, 100000, 3), spec)
     assert (_table(ms), by) == (0.00478, "bytes")
+
+
+def test_pcg_body_bound():
+    """The fused CG body's bound on the benchmark's 10k walk (seed 0: 6,192
+    landmark rows of 16 slots over 3,887 landmarks, 7 pose slots, the
+    9,999-edge chain): bytes bind, 2.10 us, the kernel table's row 5."""
+    spec = R.chip_spec(SXM)
+    fmas, nbytes = R.pcg_body_work(10000, 3887, 6192, 7, 16, 9999, True)
+    assert (fmas, nbytes) == (1804432.0, 7036492.0)
+    ms, by = R.bound_ms(fmas, nbytes, spec)
+    assert (_table(ms), by) == (0.0021, "bytes")

@@ -122,7 +122,7 @@ def test_packed_solve_paths_and_counters_agree_with_its_stats(walk):
     assert rec.counters == {"gn.outers": CFG.iters,
                             "cg.bodies": int(stats["cg_matvecs"].sum()),
                             "cg.polls": int(stats["cg_polls"].sum()),
-                            "cg.graph_bodies": 0, "gather.windowed": 0,
+                            "cg.graph_bodies": 0, "cg.fused_bodies": 0, "gather.windowed": 0,
                             "gather.plain": 4 * CFG.iters + 2 * int(stats["cg_matvecs"].sum())}
     assert rec.paths["solve_packed/step"][0] == CFG.iters
     assert rec.paths["solve_packed/step/pcg/poll"][0] == rec.counters["cg.polls"]
@@ -145,7 +145,7 @@ def test_flat_solve_is_one_root(walk):
     rec = _last("solve")
     assert rec.counters == {"cg.bodies": int(stats["cg_matvecs"].sum()),
                             "cg.polls": int(stats["cg_polls"].sum()),
-                            "cg.graph_bodies": 0}
+                            "cg.graph_bodies": 0, "cg.fused_bodies": 0}
     assert set(rec.paths) == {"solve", "solve/poll"}
 
 
