@@ -5,8 +5,11 @@ The iteration is ``solver/schur.py`` ``pcg``'s body (``cg_step``) over the
 matvec of ``solver/schur_packed.py`` ``packed_s_matvec``, for the systems
 whose odometry is the chain prefix alone, whose coupling blocks are f32 and
 whose preconditioner is the block-Jacobi 3x3 inverse array.  That body is
-the kernel's plain twin (``schur_packed.plain_cg_body``).  It replaces no
-TPU kernel: the JAX package leaves the body to XLA inside a ``while_loop``.
+the kernel's plain twin (``schur_packed.plain_cg_body``).  ``pcg`` runs
+either body when handed it as ``make_body``; on the card the packed
+solver hands it the kernel's (``schur_packed.fused_cg_body``).  It
+replaces no TPU kernel: the JAX package leaves the body to XLA inside a
+``while_loop``.
 
 ``PCGSystem`` binds the packed system and the loop's constants once per
 ``pcg`` call, on a CUDA device.  ``pcg_body(system, s, out)`` runs one

@@ -47,7 +47,8 @@ from boslam_torch.geometry.se2 import boxplus_state
 from boslam_torch.parallel.mesh import Mesh, make_mesh, put_sharded
 from boslam_torch.solver import residuals as R
 from boslam_torch.solver.robust import robust_cost
-from boslam_torch.solver.schur import _inv2x2, _inv3x3, _segment_sum, cg_stats, pcg
+from boslam_torch.solver.schur import (_inv2x2, _segment_sum, cg_stats, pcg,
+                                       preconditioner_apply)
 from boslam_torch.solver.schur_packed import _bearing_slot_terms, _odometry_terms
 from boslam_torch.solver.schur_packed import _step_stats as _packed_step_stats
 
@@ -324,29 +325,24 @@ def _range_s_diag(blocks: RangeBlocks, sh: RangeShards, mesh: Mesh) -> torch.Ten
     return (blocks.Hpp_diag.double() - corr).float()
 
 
-def _range_two_level(blocks: RangeBlocks, sh: RangeShards, d_local, mask, meta: RangeMeta,
-                     mesh: Mesh, cfg: SolverConfig):
-    """The two-level chain preconditioner with a replicated factor: the
-    masked diag(S) rows and the halo band are all-gathered once per build
-    (a rank's halo rows 1..NPd are the global band rows start..start+NPd-1)
-    and factored on every rank; each apply all-gathers the residual and
-    keeps the rank's rows of the replicated solve."""
-    from boslam_torch.solver.two_level import aggregate_size, two_level_factor, two_level_solve
-
-    NPp = meta.np_pad
-    NPd = d_local.shape[0]
-    dg = mesh.all_gather(d_local)  # [NPp, 3, 3]
-    mg = mesh.all_gather(mask)  # [NPp, 1]
-    bandg = mesh.all_gather(blocks.Ho[1:])[: NPp - 1]
-    bandg = bandg * (mg[:-1, :, None] * mg[1:, :, None])
-    factor = two_level_factor(dg, bandg, aggregate_size(cfg.coarse_q, NPp), mg,
-                              cycle=cfg.two_level_cycle)
+def _range_preconditioner(blocks: RangeBlocks, sh: RangeShards, mask, meta: RangeMeta,
+                          mesh: Mesh, cfg: SolverConfig):
+    """The PCG preconditioner of the range layout, the JAX package's rule:
+    two_level when asked for, else block-Jacobi on the rank's rows.  The
+    two-level factor is replicated: diag(S), the mask and the halo band are
+    all-gathered once per build (a rank's halo rows 1..NPd are the global
+    band rows start..start+NPd-1) and factored on every rank; each apply
+    all-gathers the residual and keeps the rank's rows of the replicated
+    solve."""
+    s_diag = _range_s_diag(blocks, sh, mesh)
+    if cfg.preconditioner != "two_level":
+        return preconditioner_apply("block_jacobi", s_diag, None, mask, cfg)
+    NPp, NPd = meta.np_pad, s_diag.shape[0]
+    apply = preconditioner_apply(
+        "two_level", mesh.all_gather(s_diag),
+        lambda: mesh.all_gather(blocks.Ho[1:])[: NPp - 1], mesh.all_gather(mask), cfg)
     start = mesh.rank * NPd
-
-    def apply_m(r):
-        return two_level_solve(factor, mesh.all_gather(r))[start:start + NPd]
-
-    return apply_m
+    return lambda r: apply(mesh.all_gather(r))[start:start + NPd]
 
 
 def range_build_and_solve(sh: RangeShards, cfg: SolverConfig, damping, meta: RangeMeta,
@@ -362,12 +358,7 @@ def range_build_and_solve(sh: RangeShards, cfg: SolverConfig, damping, meta: Ran
     corr = torch.einsum("pkij,pkj->pi", blocks.Bp, mesh.all_gather(w0)[sh.p_lm])
     rhs = (-blocks.bp + corr) * mask
 
-    eye3 = torch.eye(3, dtype=sh.poses.dtype, device=sh.poses.device)
-    d = mask[..., None] * _range_s_diag(blocks, sh, mesh) + (1.0 - mask[..., None]) * eye3
-    if cfg.preconditioner == "two_level":
-        precond = _range_two_level(blocks, sh, d, mask, meta, mesh, cfg)
-    else:
-        precond = _inv3x3(d)
+    precond = _range_preconditioner(blocks, sh, mask, meta, mesh, cfg)
     if x0 is not None:
         x0 = x0 * mask
     dp, n_iters, rel_res2, breakdown, info = pcg(

@@ -322,7 +322,7 @@ def cg_cond(b2, tol2: float, restarts: int, max_iters: int):
 
 
 def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int = 0,
-        poll_every: int = CG_POLL_EVERY, mesh=None, split: bool = False,
+        poll_every: int = CG_POLL_EVERY, mesh=None, split: bool = False, make_body=None,
         _eager: bool = False):
     """Preconditioned conjugate gradients over pose-block arrays f32[NP, 3].
 
@@ -358,12 +358,10 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     nothing back to the host, so each is captured.  ``_eager`` turns the
     graph off (the card tests).
 
-    ``matvec`` may carry a method ``fused_body(precond, b2, tol2, restarts,
-    max_iters)`` (``schur_packed.PackedSOperator``): a body it returns for
-    this call's ``precond`` and loop condition stands for the body below,
-    the same iteration over the system that ``matvec`` multiplies by (one
-    CUDA kernel on the card); every body then runs it, eager or captured
-    ("fused_bodies").  It returns None where it has no such body.
+    ``make_body``: None for the body below, or a factory (b2, tol2,
+    restarts, max_iters) -> a body of the same iteration and loop condition
+    (the packed solver's ``schur_packed.fused_cg_body``), called once; every
+    body then runs it, eager or captured ("fused_bodies").
 
     ``mesh``: the ranks of a multi-device layout, whose polls go through
     ``poll``'s maximum.  ``split``: the vectors are split over the ranks
@@ -398,12 +396,11 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
 
     cond = cg_cond(b2, tol2, restarts, max_iters)
 
-    def unfused(s: CGState, out: CGState | None = None) -> CGState:
-        return cg_step(s, matvec(s.p), apply_m, dot, cond, out)
-
-    make = getattr(matvec, "fused_body", None)
-    fused = None if make is None else make(precond, b2, tol2, restarts, max_iters)
-    body = unfused if fused is None else fused
+    if make_body is None:
+        def body(s: CGState, out: CGState | None = None) -> CGState:
+            return cg_step(s, matvec(s.p), apply_m, dot, cond, out)
+    else:
+        body = make_body(b2, tol2, restarts, max_iters)
     k = torch.zeros((), dtype=torch.int32, device=rhs.device)
     nbrk = first_bad.to(torch.int32)
     s = CGState(x0, r0, d0, d0, torch.where(first_bad, rr0, rz0), rr0, nbrk, k, x0, rr0,
@@ -427,47 +424,71 @@ def pcg(matvec, rhs, precond, max_iters: int, tol: float, x0=None, restarts: int
     rr_out = torch.where(breakdown, s.rr_best, s.rr)
     return x_out, s.k, rr_out / b2, breakdown, {
         "matvecs": matvecs + bodies, "polls": polls, "graph_bodies": graph_bodies,
-        "captures": int(graph_bodies > 0), "fused_bodies": 0 if fused is None else bodies,
+        "captures": int(graph_bodies > 0), "fused_bodies": 0 if make_body is None else bodies,
         "events": s.nbrk}
 
 
-def flat_chain_band(blocks: SchurBlocks, g: FactorGraph, mesh=None) -> torch.Tensor:
-    """f32[NP-1, 3, 3] odometry-chain band from the flat edge arrays: the
+def flat_chain_band(Ho_sd: torch.Tensor, o_src: torch.Tensor, o_dst: torch.Tensor,
+                    n_poses: int, mesh=None) -> torch.Tensor:
+    """f32[NP-1, 3, 3] odometry-chain band from odometry edge arrays: the
     coupling between poses i and i+1 summed over every consecutive-pair
-    edge; other edges affect preconditioner quality only."""
-    is_band = (g.o_dst == g.o_src + 1)[:, None, None].to(blocks.Ho_sd.dtype)
-    band = _segment_sum(blocks.Ho_sd * is_band, g.o_src, g.n_poses - 1)
+    edge, completed by a psum under a ``mesh``; other edges affect
+    preconditioner quality only."""
+    is_band = (o_dst == o_src + 1)[:, None, None].to(Ho_sd.dtype)
+    band = _segment_sum(Ho_sd * is_band, o_src, n_poses - 1)
     return band if mesh is None else mesh.psum(band)
 
 
-def _flat_preconditioner(blocks: SchurBlocks, g: FactorGraph, cfg: SolverConfig,
-                         mask: torch.Tensor, mesh=None):
-    """PCG preconditioner of the flat path: block-Jacobi diag(S), the
-    PD-clamped block-tridiagonal chain solve, or the two-level chain scheme
-    (``solver/two_level.py``).  "auto" takes the chain solve up to 32768
-    poses; "bband" maps to block-Jacobi, as in the JAX package."""
-    NP_ = g.n_poses
-    which = cfg.preconditioner
+def resolve_preconditioner(which: str, n_poses: int, has_chain: bool,
+                           bband: bool = False) -> str:
+    """The preconditioner a PCG solve builds for ``cfg.preconditioner``, by
+    the JAX package's rules: "auto" is btridiag up to 32768 poses (measured
+    on its TPU), a chain preconditioner without a chain is block-Jacobi, and
+    "bband" is itself on the path that builds it (``bband``) and
+    block-Jacobi elsewhere."""
     if which == "auto":
-        which = "btridiag" if 1 < NP_ <= 32768 else "block_jacobi"
+        which = "btridiag" if n_poses <= 32768 else "block_jacobi"
     if which not in ("block_jacobi", "bband", "btridiag", "two_level"):
-        raise ValueError(f"unknown preconditioner {cfg.preconditioner!r}")
-    eye3 = torch.eye(3, dtype=blocks.Hpp_diag.dtype, device=g.device)
-    d = mask[..., None] * s_diag_blocks(blocks, g, mesh) + (1.0 - mask[..., None]) * eye3
-    if which in ("block_jacobi", "bband") or NP_ <= 1:
+        raise ValueError(f"unknown preconditioner {which!r}")
+    if which == "bband":
+        return which if bband else "block_jacobi"
+    return which if has_chain else "block_jacobi"
+
+
+def preconditioner_apply(which: str, s_diag: torch.Tensor, chain_band, mask: torch.Tensor,
+                         cfg: SolverConfig):
+    """The apply of the resolved preconditioner ``which`` from the unmasked
+    diag(S): the 3x3 block-inverse array (block-Jacobi), or r -> M^-1 r for
+    T = tridiag(diag(S), ``chain_band()``) by the PD-clamped chain solve
+    (``solver/btridiag.py``) or the two-level scheme
+    (``solver/two_level.py``).  The fixed pose's block is pinned to the
+    identity and its band entries zeroed, as the masked matvec."""
+    eye3 = torch.eye(3, dtype=mask.dtype, device=mask.device)
+    d = mask[..., None] * s_diag + (1.0 - mask[..., None]) * eye3
+    if which == "block_jacobi":
         return _inv3x3(d)
-    band = flat_chain_band(blocks, g, mesh) * (mask[:-1, :, None] * mask[1:, :, None])
+    band = chain_band() * (mask[:-1, :, None] * mask[1:, :, None])
     if which == "two_level":
         from boslam_torch.solver.two_level import aggregate_size, two_level_factor, two_level_solve
 
-        factor = two_level_factor(d, band, aggregate_size(cfg.coarse_q, NP_), mask,
+        factor = two_level_factor(d, band, aggregate_size(cfg.coarse_q, d.shape[0]), mask,
                                   cycle=cfg.two_level_cycle)
         return lambda r: two_level_solve(factor, r)
     from boslam_torch.solver.btridiag import btridiag_factor, btridiag_solve
 
-    # clamp_band < 1/2: provably PD scaled factorization (solver/btridiag.py)
+    # clamp_band 0.4999 < 1/2: the scaled factorization is provably PD;
+    # healthy stiff-chain blocks sit just below 1/2 and are left alone
     factor = btridiag_factor(d, band, clamp_band=0.4999)
     return lambda r: btridiag_solve(factor, r)
+
+
+def _flat_preconditioner(blocks: SchurBlocks, g: FactorGraph, cfg: SolverConfig,
+                         mask: torch.Tensor, mesh=None):
+    """PCG preconditioner of the flat path, where a graph of two poses or
+    more has a chain and "bband" is block-Jacobi (the JAX package's)."""
+    which = resolve_preconditioner(cfg.preconditioner, g.n_poses, g.n_poses > 1)
+    band = lambda: flat_chain_band(blocks.Ho_sd, g.o_src, g.o_dst, g.n_poses, mesh)  # noqa: E731
+    return preconditioner_apply(which, s_diag_blocks(blocks, g, mesh), band, mask, cfg)
 
 
 def cg_stats(n_iters, rel_res2, breakdown, info, device) -> dict:

@@ -10,15 +10,15 @@ windowed kernel (``ops/windowed_gather.py``), one launch per gather: two in
 the build, one for the reduced rhs, one in ``packed_s_diag``, two per
 matvec and one in the back-substitution, so 5 + 2 k per outer iteration
 with k matvecs (LM's cost check adds one; "bband" adds one for its
-assembly).  On the card, a system that ``fused_body_rule`` admits (no
-mesh, block-Jacobi, f32 blocks, a chain odometry) runs each CG body as one
-``ops/pcg_body.py`` call (``PackedSOperator.fused_body``), four launches
-that read both grids through their plans themselves: its bodies launch no
-``windowed_take``.  With
-``coupling_dtype="bfloat16"`` the coupling blocks are stored bf16 and every
-contraction with them (``_couple``) rounds the other operand to bf16 too
-and sums in f32, as the JAX package's MXU-native
-bf16 x bf16 -> f32 einsum; the CG tolerance is then clamped to
+assembly).  On the card, the solver hands ``pcg`` the kernel's body
+(``fused_cg_body``) where ``fused_body_rule`` admits the system from the
+preconditioner's resolved name (no mesh, block-Jacobi, f32 blocks, a chain
+odometry): each CG body is then one ``ops/pcg_body.py`` call, four launches
+that read both grids through their plans themselves, so its bodies launch
+no ``windowed_take``.  With ``coupling_dtype="bfloat16"`` the coupling
+blocks are stored bf16 and every contraction with them (``_couple``)
+rounds the other operand to bf16 too and sums in f32, as the JAX package's
+MXU-native bf16 x bf16 -> f32 einsum; the CG tolerance is then clamped to
 ``BF16_CG_TOL_FLOOR``.
 
 Under a ``mesh`` (``parallel/sharded_packed.py``) the slot grids are the
@@ -35,7 +35,7 @@ then the step's boxplus: two ranges per step), under the caller's "step".
 
 from __future__ import annotations
 
-import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -51,8 +51,8 @@ from boslam_torch.solver.gauss_newton import delta_norm
 from boslam_torch.solver import residuals as R
 from boslam_torch.solver.robust import robust_cost, robust_weights
 from boslam_torch.solver.schur import (
-    CGState, _inv2x2, _inv3x3, _nan_guard, _pose_mask, _segment_sum, cg_cond, cg_stats, cg_step,
-    pcg,
+    CGState, _inv2x2, _nan_guard, _pose_mask, _segment_sum, cg_cond, cg_stats, cg_step,
+    flat_chain_band, pcg, preconditioner_apply, resolve_preconditioner,
 )
 from boslam_torch.utils.spans import span
 
@@ -336,38 +336,31 @@ def packed_s_diag(blocks: PackedBlocks, pk: PackedEdges, mesh=None) -> torch.Ten
 
 
 def _chain_band(blocks: PackedBlocks, pk: PackedEdges, NP_: int, mesh=None) -> torch.Tensor:
-    """f32[NP-1, 3, 3] chain band: the chain-prefix couplings, zero past it.
-    Under a ``mesh``: the rank's consecutive-pair couplings summed by src
-    and completed by a psum (the same band; other edges are left out)."""
+    """f32[NP-1, 3, 3] chain band: the chain-prefix couplings, zero past it;
+    under a ``mesh``, ``flat_chain_band`` of the rank's edges (the same
+    band; other edges are left out)."""
     if mesh is not None:
-        is_band = (blocks.o_dst == blocks.o_src + 1)[:, None, None].to(blocks.Ho_sd.dtype)
-        return mesh.psum(_segment_sum(blocks.Ho_sd * is_band, blocks.o_src, NP_ - 1))
+        return flat_chain_band(blocks.Ho_sd, blocks.o_src, blocks.o_dst, NP_, mesh)
     nc = pk.chain_len
     band = blocks.Ho_sd.new_zeros((NP_ - 1, 3, 3))
     band[:nc] = blocks.Ho_sd[:nc]
     return band
 
 
+def _packed_which(pk: PackedEdges, cfg: SolverConfig, NP_: int) -> str:
+    """The packed path's preconditioner: on a chain prefix, bband its own."""
+    return resolve_preconditioner(cfg.preconditioner, NP_, pk.chain_len > 0 and NP_ > 1,
+                                  bband=True)
+
+
 def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverConfig, mask,
                            mesh=None):
-    """The PCG preconditioner of the packed system.
-
-    "block_jacobi": exact 3x3 diag(S).  "btridiag" (graphs with an odometry
-    chain): T = tridiag(diag(S), chain band) factored by cyclic reduction.
-    "two_level": the two-level chain scheme over the same T
-    (``solver/two_level.py``).  "bband": the block-banded T = band_w(S)
-    over super-nodes of q = band_group or band_width poses
-    (``solver/bband.py``), on any graph.  "auto": btridiag up to 32768
-    poses, block-Jacobi above (the JAX package's rule, measured on its
-    TPU).  The fixed pose's block is pinned to the identity and its band
-    entries zeroed, as the masked matvec.  Without a chain every other
-    choice is block-Jacobi.
-    """
+    """The PCG preconditioner of the packed system (``_packed_which``):
+    "bband", the block-banded T = band_w(S) over super-nodes of q =
+    band_group or band_width poses (``solver/bband.py``), or
+    ``preconditioner_apply``'s."""
     NP_ = blocks.Hpp_diag.shape[0]
-    has_chain = pk.chain_len > 0 and NP_ > 1
-    which = cfg.preconditioner
-    if which == "auto":
-        which = "btridiag" if has_chain and NP_ <= 32768 else "block_jacobi"
+    which = _packed_which(pk, cfg, NP_)
     if which == "bband":
         from boslam_torch.solver.bband import assemble_sband, bband_factor, bband_solve
 
@@ -379,39 +372,26 @@ def _packed_preconditioner(blocks: PackedBlocks, pk: PackedEdges, cfg: SolverCon
         diag, band = assemble_sband(blocks, pk, q, mask, mesh=mesh)
         factor = bband_factor(diag, band, q, clamp_band=0.98)
         return lambda r: bband_solve(factor, r)
-    if which not in ("block_jacobi", "btridiag", "two_level"):
-        raise ValueError(f"unknown preconditioner {cfg.preconditioner!r}")
-    eye3 = torch.eye(3, dtype=blocks.Hpp_diag.dtype, device=blocks.Hpp_diag.device)
-    d = mask[..., None] * packed_s_diag(blocks, pk, mesh) + (1.0 - mask[..., None]) * eye3
-    if which == "block_jacobi" or not has_chain:
-        return _inv3x3(d)
-    band = _chain_band(blocks, pk, NP_, mesh) * (mask[:-1, :, None] * mask[1:, :, None])
-    if which == "two_level":
-        from boslam_torch.solver.two_level import aggregate_size, two_level_factor, two_level_solve
 
-        factor = two_level_factor(d, band, aggregate_size(cfg.coarse_q, NP_), mask,
-                                  cycle=cfg.two_level_cycle)
-        return lambda r: two_level_solve(factor, r)
-    from boslam_torch.solver.btridiag import btridiag_factor, btridiag_solve
+    def chain_band():
+        band = _chain_band(blocks, pk, NP_, mesh)
+        if which == "btridiag" and cfg.btridiag_block and NP_ > cfg.btridiag_block:
+            # optional chain cutting into independent sub-chains (legacy knob)
+            i = torch.arange(NP_ - 1, device=band.device)
+            band = band * (((i + 1) % cfg.btridiag_block) != 0)[:, None, None].to(band.dtype)
+        return band
 
-    if cfg.btridiag_block and NP_ > cfg.btridiag_block:
-        # optional chain cutting into independent sub-chains (legacy knob)
-        i = torch.arange(NP_ - 1, device=band.device)
-        band = band * (((i + 1) % cfg.btridiag_block) != 0)[:, None, None].to(band.dtype)
-    # clamp_band 0.4999 < 1/2: the scaled factorization is provably PD;
-    # healthy stiff-chain blocks sit just below 1/2 and are left alone
-    factor = btridiag_factor(d, band, clamp_band=0.4999)
-    return lambda r: btridiag_solve(factor, r)
+    return preconditioner_apply(which, packed_s_diag(blocks, pk, mesh), chain_band, mask, cfg)
 
 
-def fused_body_rule(blocks: PackedBlocks, pk: PackedEdges, precond, row_chunk: int = 0,
+def fused_body_rule(blocks: PackedBlocks, pk: PackedEdges, which: str, row_chunk: int = 0,
                     mesh=None) -> bool:
     """Whether the CG body of this system may be one ``ops/pcg_body.py``
-    call: no mesh, the block-Jacobi inverse array as preconditioner, f32
-    coupling blocks, no row chunks and an odometry that is its chain prefix
-    alone.  ``PackedSOperator`` adds the last condition, a CUDA device (its
-    ``fuse``); every other system keeps the body of ``pcg``."""
-    return (mesh is None and isinstance(precond, torch.Tensor)
+    call: no mesh, block-Jacobi as the resolved preconditioner ``which``,
+    f32 coupling blocks, no row chunks and an odometry that is its chain
+    prefix alone.  The solver adds the last condition, a CUDA device;
+    every other system keeps the body of ``pcg``."""
+    return (mesh is None and which == "block_jacobi"
             and blocks.Bp.dtype == blocks.Bl.dtype == torch.float32 and row_chunk == 0
             and pk.chain_len == blocks.Ho_sd.shape[0])
 
@@ -431,44 +411,21 @@ def plain_cg_body(blocks: PackedBlocks, pk: PackedEdges, mask, precond, b2, tol2
     return body
 
 
-@dataclasses.dataclass
-class PackedSOperator:
-    """The reduced system S of one packed solve as ``pcg`` takes it: called
-    on x, ``packed_s_matvec``; ``fused_body``, ``pcg``'s whole body for a
-    preconditioner and loop condition where ``fuse`` holds (the solver sets
-    it on a CUDA device) and ``fused_body_rule`` admits the system.  On the
-    card that body is one ``pcg_body`` call, which charges the two gathers
-    it makes by route (``gather_counts``); on the CPU it is the plain twin
-    (``plain_cg_body``)."""
+def fused_cg_body(blocks: PackedBlocks, pk: PackedEdges, mask, precond, b2, tol2: float,
+                  restarts: int, max_iters: int):
+    """``plain_cg_body`` as one ``pcg_body`` call on the card, which charges
+    the two gathers it makes by route (``gather_counts``)."""
+    system = PCGSystem(blocks.Hpp_diag, precond, blocks.Ho_sd, mask, blocks.Hll_inv, blocks.Bp,
+                       pk.p_lm, blocks.Bl, pk.l_pose, pk.l_virt, pk.p_plan, pk.l_plan, b2, tol2,
+                       restarts, max_iters)
+    windowed = (pk.p_plan is not None) + (pk.l_plan is not None)
 
-    blocks: PackedBlocks
-    pk: PackedEdges
-    mask: torch.Tensor
-    row_chunk: int = 0
-    mesh: object = None
-    fuse: bool = False
+    def body(s: CGState, out: CGState | None = None) -> CGState:
+        _take.windowed += windowed
+        _take.plain += 2 - windowed
+        return CGState(*pcg_body(system, s, out))
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return packed_s_matvec(self.blocks, self.pk, x, self.mask, row_chunk=self.row_chunk,
-                               mesh=self.mesh)
-
-    def fused_body(self, precond, b2, tol2: float, restarts: int, max_iters: int):
-        blocks, pk = self.blocks, self.pk
-        if not (self.fuse and fused_body_rule(blocks, pk, precond, self.row_chunk, self.mesh)):
-            return None
-        if not blocks.Bp.is_cuda:
-            return plain_cg_body(blocks, pk, self.mask, precond, b2, tol2, restarts, max_iters)
-        system = PCGSystem(blocks.Hpp_diag, precond, blocks.Ho_sd, self.mask, blocks.Hll_inv,
-                           blocks.Bp, pk.p_lm, blocks.Bl, pk.l_pose, pk.l_virt, pk.p_plan,
-                           pk.l_plan, b2, tol2, restarts, max_iters)
-        windowed = (pk.p_plan is not None) + (pk.l_plan is not None)
-
-        def body(s: CGState, out: CGState | None = None) -> CGState:
-            _take.windowed += windowed
-            _take.plain += 2 - windowed
-            return CGState(*pcg_body(system, s, out))
-
-        return body
+    return body
 
 
 def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverConfig, damping,
@@ -488,6 +445,10 @@ def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverCon
         rhs = (-blocks.bp + corr) * mask
 
         precond = _packed_preconditioner(blocks, pk, cfg, mask, mesh)
+        make_body = None
+        if g.poses.is_cuda and fused_body_rule(blocks, pk, _packed_which(pk, cfg, g.n_poses),
+                                               cfg.matvec_row_chunk, mesh):
+            make_body = functools.partial(fused_cg_body, blocks, pk, mask, precond)
         if x0 is not None:
             x0 = x0 * mask
     # bf16 blocks put a ~2^-8 noise floor under the matvec: asking CG for
@@ -497,8 +458,9 @@ def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverCon
         cg_tol = max(cg_tol, BF16_CG_TOL_FLOOR)
     with span("pcg"):
         dp, n_iters, rel_res2, breakdown, info = pcg(
-            PackedSOperator(blocks, pk, mask, cfg.matvec_row_chunk, mesh, fuse=g.poses.is_cuda),
-            rhs, precond, cfg.cg_iters, cg_tol, x0, restarts=cfg.cg_restarts, mesh=mesh,
+            lambda x: packed_s_matvec(blocks, pk, x, mask, cfg.matvec_row_chunk, mesh), rhs,
+            precond, cfg.cg_iters, cg_tol, x0, restarts=cfg.cg_restarts, mesh=mesh,
+            make_body=make_body,
         )
     with span("update"):
         dp = dp * mask

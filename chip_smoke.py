@@ -760,7 +760,8 @@ def run_packed(torch, solve, g, cfg, counters, label, windowed, fused=False):
     """One packed or flat CG path on the card with every count at 0: checks
     the windowed launches against the formula (0 when not ``windowed``),
     and one ``pcg_body`` launch per CG body where ``fused`` (block-Jacobi
-    on a chain: ``schur_packed.fused_body_rule``), none elsewhere."""
+    as the resolved preconditioner, on a chain: the packed solver's
+    ``schur_packed.fused_body_rule``), none elsewhere."""
     g2, st, counts, secs = _run_path(torch, solve, g, cfg, counters)
     want = _want(counts, pcg_body=int(st["cg_matvecs"].sum()) if fused else 0)
     if windowed:
@@ -1645,7 +1646,7 @@ def range_pieces(torch, g, cfg, mesh):
     ``tools/port_packed_scan.py --what pose_range`` runs it on the CPU."""
     from boslam_torch.graph.packed import pack_edges
     from boslam_torch.parallel.pose_range import (
-        _local_mask, _range_build, _range_matvec, _range_s_diag, _range_two_level,
+        _local_mask, _range_build, _range_matvec, _range_preconditioner, _range_s_diag,
         prepare_pose_range, range_build_and_solve)
     from boslam_torch.solver import schur, schur_packed as sp
 
@@ -1682,9 +1683,7 @@ def range_pieces(torch, g, cfg, mesh):
     gaps["s_diag_f64"] = gap(d_r, s64)
     gaps["s_diag_packed_f64"] = gap(sp.packed_s_diag(bp, pk), s64)
     eye3 = torch.eye(3, dtype=d_r.dtype, device=d_r.device)
-    d = mask_r[..., None] * d_r + (1.0 - mask_r[..., None]) * eye3
-    precond = (_range_two_level(br, sh, d, mask_r, meta, mesh, cfg)
-               if cfg.preconditioner == "two_level" else schur._inv3x3(d))
+    precond = _range_preconditioner(br, sh, mask_r, meta, mesh, cfg)
     precond_p = sp._packed_preconditioner(bp, pk, cfg, mask)
     gaps["precond_apply"] = gap(apply(precond, x * mask_r), apply(precond_p, x * mask))
     if cfg.preconditioner != "two_level":

@@ -1,6 +1,8 @@
 """The CG pieces against the JAX package on the CPU: the block-tridiagonal
 chain preconditioner, the 3x3 closed forms, ``pcg`` on fixed systems, and
-the flat ``schur_cg`` path (matvec, diagonal, whole solves).
+the flat ``schur_cg`` path (matvec, diagonal, whole solves); the port
+alone: the fused CG body's plain twin and rule, and the one helper that builds
+every path's preconditioner.
 
 Tolerances: the closed forms and btridiag at rtol 1e-5 against JAX (both
 f32, the same expression order); btridiag against f64 at the JAX bound
@@ -29,6 +31,15 @@ from boslam_torch.graph.data import FactorGraph
 from boslam_torch.solver import btridiag as bt
 from boslam_torch.solver import optimizer as opt
 from boslam_torch.solver import schur
+
+
+# two intra-op threads a test: the suite's workers share the cores
+@pytest.fixture(autouse=True)
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _random_spd_chain(n, rng):
@@ -329,7 +340,8 @@ def test_flat_matvec_diag_band_match_jax(loop_closures):
     _close(schur.s_matvec(b, g, torch.from_numpy(x), mask).numpy(),
            schur_jax.s_matvec(b_j, gj, jnp.asarray(x), mask_j))
     _close(schur.s_diag_blocks(b, g).numpy(), schur_jax.s_diag_blocks(b_j, gj))
-    _close(schur.flat_chain_band(b, g).numpy(), schur_jax.flat_chain_band(b_j, gj))
+    _close(schur.flat_chain_band(b.Ho_sd, g.o_src, g.o_dst, g.n_poses).numpy(),
+           schur_jax.flat_chain_band(b_j, gj))
     # diag(S) agrees to 1e-7 of its largest entry; its 3x3 blocks cancel
     # (condition up to ~1e4), so the inverses and the chain solve agree to
     # 2.7e-4 and 8.8e-4 of their largest entry (measured): held at 2e-3
@@ -468,22 +480,22 @@ def _packed_system(corridor: bool, variant: str = "plain"):
 @pytest.mark.parametrize("variant", ["plain", "fixed_mid", "indefinite", "curvature"])
 @pytest.mark.parametrize("corridor", [False, True], ids=["walk", "corridor"])
 def test_fused_twin_matches_the_body(corridor, variant):
-    """``pcg`` with the fused body's plain twin against ``pcg`` with its own
-    body over ``packed_s_matvec``, on a walk (split landmark rows, plain
-    gathers) and a corridor (both grids through their windows): one body
-    and a short loop give the same bits of x, n_iters, rel_res2,
-    breakdown and events, the same host counts, every body fused, and the
-    gathers charged two per body by route; the restart variants do
-    restart."""
+    """``pcg`` handed the fused body's plain twin (``make_body``) against
+    ``pcg`` with its own body over ``packed_s_matvec``, on a walk (split
+    landmark rows, plain gathers) and a corridor (both grids through their
+    windows): one body and a short loop give the same bits of x, n_iters,
+    rel_res2, breakdown and events, the same host counts, every body
+    fused, and the gathers charged two per body by route; the restart
+    variants do restart."""
     from boslam_torch.solver import schur_packed as sp
 
     blocks, pk, mask, precond, rhs = _packed_system(corridor, variant)
     mv = lambda x: sp.packed_s_matvec(blocks, pk, x, mask)  # noqa: E731
-    op = sp.PackedSOperator(blocks, pk, mask, fuse=True)
+    twin = functools.partial(sp.plain_cg_body, blocks, pk, mask, precond)
     for cap in (1, 25):
         want = schur.pcg(mv, rhs, precond, cap, 1e-12, restarts=3)
         before = sp.gather_counts()
-        got = schur.pcg(op, rhs, precond, cap, 1e-12, restarts=3)
+        got = schur.pcg(mv, rhs, precond, cap, 1e-12, restarts=3, make_body=twin)
         counted = [a - b for a, b in zip(sp.gather_counts(), before)]
         for g_, w_ in zip(got[:4], want[:4]):
             assert torch.equal(g_, w_)
@@ -498,15 +510,16 @@ def test_fused_twin_matches_the_body(corridor, variant):
 
 @pytest.mark.parametrize("corridor", [False, True], ids=["walk", "corridor"])
 def test_fused_twin_frozen_state(corridor):
-    """A body whose state is no longer active changes none of the eleven
-    tensors, into new tensors or in place; on the CPU the fused body is the
-    plain twin, and the kernel's system refuses CPU tensors."""
+    """A body of the twin whose state is no longer active changes none of
+    the eleven tensors, into new tensors or in place; an active one is
+    ``pcg``'s own step over ``packed_s_matvec`` to the bit; the kernel's
+    body and system refuse CPU tensors."""
     from boslam_torch.ops import pcg_body as pb
     from boslam_torch.solver import schur_packed as sp
 
     blocks, pk, mask, precond, rhs = _packed_system(corridor)
     b2 = torch.sum(rhs * rhs)
-    body = sp.PackedSOperator(blocks, pk, mask, fuse=True).fused_body(precond, b2, 1e-10, 3, 50)
+    body = functools.partial(sp.plain_cg_body, blocks, pk, mask, precond)(b2, 1e-10, 3, 50)
     z = torch.einsum("pij,pj->pi", precond, rhs)
     s = schur.CGState(torch.zeros_like(rhs), rhs, z, z, torch.sum(rhs * z), b2,
                       torch.zeros((), dtype=torch.int32), torch.zeros((), dtype=torch.int32),
@@ -521,10 +534,14 @@ def test_fused_twin_frozen_state(corridor):
             assert torch.equal(a, b)
         if out is not None:
             assert all(a is b for a, b in zip(new, out))
-    # the twin is what the body runs on the CPU
-    twin = sp.plain_cg_body(blocks, pk, mask, precond, b2, 1e-10, 3, 50)
-    for a, b in zip(twin(s), body(s)):
+    # the twin is pcg's own body over the packed system
+    own = schur.cg_step(s, sp.packed_s_matvec(blocks, pk, s.p, mask),
+                        lambda r: torch.einsum("pij,pj->pi", precond, r),
+                        lambda u, v: torch.sum(u * v), schur.cg_cond(b2, 1e-10, 3, 50))
+    for a, b in zip(own, body(s)):
         assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="CUDA device"):
+        sp.fused_cg_body(blocks, pk, mask, precond, b2, 1e-10, 3, 50)
     with pytest.raises(ValueError, match="CUDA device"):
         pb.PCGSystem(blocks.Hpp_diag, precond, blocks.Ho_sd, mask, blocks.Hll_inv, blocks.Bp,
                      pk.p_lm, blocks.Bl, pk.l_pose, pk.l_virt, pk.p_plan, pk.l_plan, b2,
@@ -533,34 +550,37 @@ def test_fused_twin_frozen_state(corridor):
 
 def test_fused_body_rule():
     """The fused body is chosen from what the solver sees: on a chain
-    odometry with f32 blocks, no mesh, no row chunks and the block-Jacobi
-    inverse array, and nowhere else (btridiag's apply, bf16 blocks, a mesh,
-    row chunks, edges past the chain prefix); the operator offers a body
-    only where the rule holds and ``fuse`` is set, which the solver sets on
-    the card alone, so the CPU keeps the body of ``pcg``."""
+    odometry with f32 blocks, no mesh, no row chunks and block-Jacobi as the
+    resolved preconditioner, and nowhere else (btridiag, two_level, bband,
+    bf16 blocks, a mesh, row chunks, edges past the chain prefix); the
+    packed path resolves "auto" on these chains to btridiag, so it does not
+    fuse; ``pcg`` runs a handed body in every body and its own otherwise;
+    the solver hands one on the card alone, so the CPU keeps the body of
+    ``pcg``."""
     import dataclasses as dc
 
     from boslam_torch.solver import schur_packed as sp
     from boslam_torch.solver.optimizer import solve_packed
 
     for corridor in (False, True):
-        blocks, pk, mask, precond, _ = _packed_system(corridor)
+        blocks, pk, mask, precond, rhs = _packed_system(corridor)
         rule = sp.fused_body_rule
-        assert rule(blocks, pk, precond, 0, None)
-        cfg = SolverConfig(linear_solver="schur_cg", preconditioner="btridiag")
-        bt = sp._packed_preconditioner(blocks, pk, cfg, mask)
-        assert not rule(blocks, pk, bt, 0, None)
+        assert rule(blocks, pk, "block_jacobi", 0, None)
+        for which in ("btridiag", "two_level", "bband"):
+            assert not rule(blocks, pk, which, 0, None), which
+        auto = sp._packed_which(pk, SolverConfig(preconditioner="auto"), blocks.Bp.shape[0])
+        assert auto == "btridiag" and not rule(blocks, pk, auto, 0, None)
         bf16 = blocks._replace(Bp=blocks.Bp.to(torch.bfloat16), Bl=blocks.Bl.to(torch.bfloat16))
-        assert not rule(bf16, pk, precond, 0, None)
-        assert not rule(blocks, pk, precond, 0, object())
-        assert not rule(blocks, pk, precond, 64, None)
-        assert not rule(blocks, dc.replace(pk, chain_len=pk.chain_len - 1), precond, 0, None)
-        b2 = torch.ones(())
-        for fuse, pre, chunk in ((True, precond, 0), (False, precond, 0), (True, bt, 0),
-                                 (True, precond, 64)):
-            op = sp.PackedSOperator(blocks, pk, mask, chunk, fuse=fuse)
-            body = op.fused_body(pre, b2, 1e-10, 0, 10)
-            assert (body is not None) == (fuse and pre is precond and not chunk)
+        assert not rule(bf16, pk, "block_jacobi", 0, None)
+        assert not rule(blocks, pk, "block_jacobi", 0, object())
+        assert not rule(blocks, pk, "block_jacobi", 64, None)
+        assert not rule(blocks, dc.replace(pk, chain_len=pk.chain_len - 1), "block_jacobi", 0,
+                        None)
+        mv = lambda x: sp.packed_s_matvec(blocks, pk, x, mask)  # noqa: E731
+        twin = functools.partial(sp.plain_cg_body, blocks, pk, mask, precond)
+        for make in (twin, None):
+            info = schur.pcg(mv, rhs, precond, 10, 1e-10, make_body=make)[4]
+            assert info["fused_bodies"] == (info["matvecs"] if make else 0) and info["matvecs"]
     g, _ = _packed_graph(False)
     from boslam_torch.utils import spans
 
@@ -568,3 +588,70 @@ def test_fused_body_rule():
                                  iters=1, cg_iters=5))
     rec = [r for r in spans.records() if r.name == "solve_packed"][-1]
     assert rec.counters["cg.fused_bodies"] == 0 < rec.counters["cg.bodies"]
+
+
+# ---- one helper builds every PCG preconditioner (schur.preconditioner_apply) ----
+
+_RESOLVED = {  # cfg.preconditioner -> (with a chain, without one), flat path's rule
+    "auto": ("btridiag", "block_jacobi"), "block_jacobi": ("block_jacobi", "block_jacobi"),
+    "btridiag": ("btridiag", "block_jacobi"), "two_level": ("two_level", "block_jacobi"),
+    "bband": ("block_jacobi", "block_jacobi")}
+
+
+@pytest.mark.parametrize("has_chain", [True, False], ids=["chain", "no_chain"])
+@pytest.mark.parametrize("path", ["flat", "packed"])
+@pytest.mark.parametrize("which", [*_RESOLVED, "jacobi"])
+def test_preconditioner_resolution(which, path, has_chain):
+    """The resolution table of both paths: "auto" is btridiag on a chain up
+    to 32768 poses and block-Jacobi past them or without a chain, a chain
+    preconditioner without a chain is block-Jacobi, "bband" is itself on
+    the packed path (on any graph) and block-Jacobi on the flat one, and
+    an unknown name is refused."""
+    bband = path == "packed"
+    if which not in _RESOLVED:
+        with pytest.raises(ValueError, match="unknown preconditioner"):
+            schur.resolve_preconditioner(which, 1200, has_chain, bband)
+        return
+    want = "bband" if bband and which == "bband" else _RESOLVED[which][not has_chain]
+    assert schur.resolve_preconditioner(which, 1200, has_chain, bband) == want
+    if which == "auto":
+        assert schur.resolve_preconditioner(which, 40000, has_chain, bband) == "block_jacobi"
+
+
+@pytest.mark.parametrize("which", ["block_jacobi", "btridiag", "two_level"])
+@pytest.mark.parametrize("path", ["flat", "packed"])
+def test_preconditioner_apply_is_the_direct_factor(path, which):
+    """Each path's preconditioner, built through the one helper, is to the
+    bit the direct inverse, ``btridiag_factor`` (clamped at 0.4999) or
+    ``two_level_factor`` solve on the same masked diag(S) and chain band,
+    with a pose fixed mid-chain."""
+    from boslam_torch.solver import schur_packed as sp
+    from boslam_torch.solver import two_level as tl
+
+    g, pk = _packed_graph(False)
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner=which)
+    mask = torch.ones((g.n_poses, 1))
+    mask[g.n_poses // 2] = 0.0
+    if path == "flat":
+        b, _ = schur.build_blocks(g, cfg, cfg.damping)
+        M = schur._flat_preconditioner(b, g, cfg, mask)
+        s_diag = schur.s_diag_blocks(b, g)
+        band = schur.flat_chain_band(b.Ho_sd, g.o_src, g.o_dst, g.n_poses)
+    else:
+        b, _ = sp.build_packed_blocks(g, pk, cfg, cfg.damping)
+        M = sp._packed_preconditioner(b, pk, cfg, mask)
+        s_diag = sp.packed_s_diag(b, pk)
+        band = sp._chain_band(b, pk, g.n_poses)
+    d = mask[..., None] * s_diag + (1.0 - mask[..., None]) * torch.eye(3)
+    band = band * (mask[:-1, :, None] * mask[1:, :, None])
+    if which == "block_jacobi":
+        assert torch.equal(M, schur._inv3x3(d))
+        return
+    r = torch.from_numpy(np.random.default_rng(2).standard_normal((g.n_poses, 3))
+                         .astype(np.float32)) * mask
+    if which == "btridiag":
+        want = bt.btridiag_solve(bt.btridiag_factor(d, band, clamp_band=0.4999), r)
+    else:
+        want = tl.two_level_solve(tl.two_level_factor(d, band, tl.aggregate_size(0, g.n_poses),
+                                                      mask, cycle=cfg.two_level_cycle), r)
+    assert torch.equal(M(r), want)

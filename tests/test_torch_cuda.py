@@ -17,6 +17,8 @@ so run them there without it:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1176,7 +1178,8 @@ def test_fused_pcg_to_the_cap_on_the_card(cuda, kind):
     blocks, pk, mask, precond, rhs, _ = _packed_10k(kind)
     mv = lambda x: sp.packed_s_matvec(blocks, pk, x, mask)  # noqa: E731
     want = schur.pcg(mv, rhs, precond, 100, 1e-5, _eager=True)
-    got = schur.pcg(sp.PackedSOperator(blocks, pk, mask, fuse=True), rhs, precond, 100, 1e-5)
+    got = schur.pcg(mv, rhs, precond, 100, 1e-5,
+                    make_body=functools.partial(sp.fused_cg_body, blocks, pk, mask, precond))
     x_gap = _pcg_body_probe().gap(got[0], want[0])
     res = float(got[2]) / float(want[2])
     assert int(got[1]) == int(want[1]) and bool(got[3]) == bool(want[3])
@@ -1206,8 +1209,8 @@ def test_fused_body_restarts_on_the_card(cuda, variant):
             Hpp_diag=blocks.Hpp_diag - shift * torch.eye(3, device=rhs.device))
     mv = lambda x: sp.packed_s_matvec(blocks, pk, x, mask)  # noqa: E731
     want = schur.pcg(mv, rhs, precond, 25, 1e-12, restarts=3, _eager=True)
-    got = schur.pcg(sp.PackedSOperator(blocks, pk, mask, fuse=True), rhs, precond, 25, 1e-12,
-                    restarts=3)
+    got = schur.pcg(mv, rhs, precond, 25, 1e-12, restarts=3,
+                    make_body=functools.partial(sp.fused_cg_body, blocks, pk, mask, precond))
     assert bool(want[3]) and int(want[4]["events"]) > 0
     assert int(got[4]["events"]) == int(want[4]["events"])
     assert int(got[1]) == int(want[1]) and bool(got[3])
@@ -1231,10 +1234,12 @@ def test_fused_body_refuses_a_plan_it_cannot_read(cuda):
     odd = dc.replace(plan, tile_rows=48, starts=torch.zeros(-(-rows // 48), dtype=torch.int32,
                                                             device=rhs.device))
     for bad in (odd, dc.replace(plan, window=2048)):
-        op = sp.PackedSOperator(blocks, dc.replace(pk, l_plan=bad), mask, fuse=True)
+        pk_bad = dc.replace(pk, l_plan=bad)
+        mv = lambda x: sp.packed_s_matvec(blocks, pk_bad, x, mask)  # noqa: E731
+        make = functools.partial(sp.fused_cg_body, blocks, pk_bad, mask, precond)
         before = pb.pcg_body.launches
         with pytest.raises(RuntimeError, match="pcg_body"):
-            schur.pcg(op, rhs, precond, 10, 1e-5)
+            schur.pcg(mv, rhs, precond, 10, 1e-5, make_body=make)
         assert pb.pcg_body.launches == before
 
 

@@ -32,6 +32,7 @@ One JSON line per graph on stdout.  ``--device cpu`` runs what a CPU can
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -250,10 +251,13 @@ def run_graph(kind: str, n_poses: int, seed: int, device: str, advance: int = 10
             graph.replay()
             outs.append([t.clone() for t in state])
         rec["replays_bitwise"] = all(torch.equal(a, b) for a, b in zip(*outs))
-    # pcg to the cap: fused (captured on the card) against its own body, eager
+    # pcg to the cap: fused (captured on the card; the twin on the CPU)
+    # against its own body, eager
     mv = lambda x: sp.packed_s_matvec(blocks, pk, x, mask)  # noqa: E731
+    fused_body = sp.fused_cg_body if cuda else sp.plain_cg_body
     a = schur.pcg(mv, rhs, precond, 100, 1e-5, _eager=True)
-    b = schur.pcg(sp.PackedSOperator(blocks, pk, mask, fuse=True), rhs, precond, 100, 1e-5)
+    b = schur.pcg(mv, rhs, precond, 100, 1e-5,
+                  make_body=functools.partial(fused_body, blocks, pk, mask, precond))
     rec["pcg"] = dict(x=gap(b[0], a[0]), rel_res2=[float(a[2]), float(b[2])],
                       iters=[int(a[1]), int(b[1])], breakdown=[bool(a[3]), bool(b[3])],
                       fused_bodies=b[4]["fused_bodies"], graph_bodies=b[4]["graph_bodies"])
