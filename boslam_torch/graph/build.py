@@ -5,8 +5,8 @@ Pipeline: parse -> default the fixed pose to the first-added pose when no
 FIX record exists -> triangulate landmark initial guesses -> build the
 device-side problem.  When triangulating, landmarks are ordered by id;
 from VERTEX_XY records they keep file order.  A build is the span
-"build", with "ids" (the host's id maps and index arrays), "upload" and
-"triangulate" under it (``utils/spans.py``).
+"build", with "ids" (the host's sorted id lookups and index arrays),
+"upload" and "triangulate" under it (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,27 @@ from boslam_torch.graph.data import FactorGraph, GraphMeta
 from boslam_torch.init.triangulation import triangulate_landmarks, warn_underconstrained
 from boslam_torch.io.g2o import ParsedG2O
 from boslam_torch.utils.spans import span
+
+
+class _IdIndex:
+    """Original ids -> their position in ``ids``, as a dict built over
+    ``ids`` maps them (a repeated id maps to its last position), by a
+    binary search over the ids sorted stably; an absent id raises
+    ``KeyError`` naming the first one."""
+
+    def __init__(self, ids):
+        ids = np.asarray(ids, np.int64)
+        self._order = np.argsort(ids, kind="stable")
+        self._sorted = ids[self._order]
+
+    def __call__(self, query) -> np.ndarray:
+        query = np.asarray(query, np.int64)
+        pos = np.searchsorted(self._sorted, query, side="right") - 1
+        found = pos >= 0
+        found[found] = self._sorted[pos[found]] == query[found]
+        if not found.all():
+            raise KeyError(int(query[np.argmin(found)]))
+        return self._order[pos].astype(np.int64, copy=False)
 
 
 def build_graph(
@@ -43,22 +64,23 @@ def build_graph(
             if init == "auto":
                 init = "file" if len(parsed.lm_ids) else "triangulate"
             pose_ids = parsed.pose_ids
-            pose_id_to_ix = {pid: ix for ix, pid in enumerate(pose_ids)}
+            pose_ix = _IdIndex(pose_ids)
+            b_pose = pose_ix(parsed.bearing_pose_id)
             if init == "file":
                 lm_ids = list(parsed.lm_ids)
+                b_lm = _IdIndex(lm_ids)(parsed.bearing_lm_id)
             elif init == "triangulate":
-                lm_ids = sorted(set(int(i) for i in parsed.bearing_lm_id))
+                lm_ids, b_lm = np.unique(np.asarray(parsed.bearing_lm_id, np.int64),
+                                         return_inverse=True)
+                lm_ids, b_lm = lm_ids.tolist(), b_lm.astype(np.int64, copy=False)
             else:
                 raise ValueError(f"unknown init {init!r}")
-            lm_id_to_ix = {lid: ix for ix, lid in enumerate(lm_ids)}
-
-            b_pose = np.array([pose_id_to_ix[int(i)] for i in parsed.bearing_pose_id], np.int64)
-            b_lm = np.array([lm_id_to_ix[int(i)] for i in parsed.bearing_lm_id], np.int64)
-            o_src = np.array([pose_id_to_ix[int(i)] for i in parsed.odom_src_id], np.int64)
-            o_dst = np.array([pose_id_to_ix[int(i)] for i in parsed.odom_dst_id], np.int64)
+            o_src = pose_ix(parsed.odom_src_id)
+            o_dst = pose_ix(parsed.odom_dst_id)
             fixed_pose_id = parsed.fixed_pose_id
             if fixed_pose_id < 0:
                 fixed_pose_id = pose_ids[0]
+            fixed_pose_ix = pose_ix([fixed_pose_id])[0]
 
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
         i64 = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
@@ -72,7 +94,7 @@ def build_graph(
                 o_dst=i64(o_dst),
                 o_meas=f32(parsed.odom_meas),
                 o_omega=f32(parsed.odom_omega),
-                fixed_pose_ix=i64(pose_id_to_ix[fixed_pose_id]),
+                fixed_pose_ix=i64(fixed_pose_ix),
             )
             poses = f32(parsed.pose_xyt)
             if init == "file":
@@ -80,8 +102,8 @@ def build_graph(
 
         if init == "triangulate":
             with span("triangulate"):
-                landmarks = triangulate_landmarks(poses, i64(b_pose), i64(b_lm), edges["b_meas"],
-                                                  n_landmarks=len(lm_ids))
+                landmarks = triangulate_landmarks(poses, edges["b_pose"], edges["b_lm"],
+                                                  edges["b_meas"], n_landmarks=len(lm_ids))
                 warn_underconstrained(lm_ids, b_lm, len(lm_ids))
 
     graph = FactorGraph(poses=poses, landmarks=landmarks, **edges)

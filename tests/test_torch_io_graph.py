@@ -16,7 +16,7 @@ from boslam.synth import generate_sequence as generate_sequence_jax
 from boslam_torch.graph.build import build_graph
 from boslam_torch.graph.data import FactorGraph
 from boslam_torch.init.triangulation import triangulate_landmarks
-from boslam_torch.io.g2o import parse_g2o, write_g2o
+from boslam_torch.io.g2o import ParsedG2O, parse_g2o, write_g2o
 from boslam_torch.synth import generate_sequence
 
 
@@ -93,6 +93,130 @@ def test_build_graph_file_init():
     gj, _ = build_graph_jax(gt, init="auto")
     g, _ = build_graph(gt, init="auto", device="cpu")
     np.testing.assert_array_equal(g.landmarks.numpy(), np.asarray(gj.landmarks))
+
+
+def _handmade(pose_ids, bearings=(), odom=(), lm_ids=(), fixed=-1):
+    """A ParsedG2O over the given ids: ``bearings`` (pose id, landmark id)
+    and ``odom`` (source id, destination id) pairs, states and
+    measurements drawn at random."""
+    rng = np.random.default_rng(11)
+    nb, no = len(bearings), len(odom)
+    ids = lambda pairs, k: np.array([p[k] for p in pairs], np.int64).reshape(-1)
+    return ParsedG2O(
+        pose_ids=list(pose_ids),
+        pose_xyt=rng.uniform(-5, 5, (len(pose_ids), 3)).astype(np.float32),
+        lm_ids=list(lm_ids),
+        lm_xy=rng.uniform(-5, 5, (len(lm_ids), 2)).astype(np.float32),
+        bearing_pose_id=ids(bearings, 0),
+        bearing_lm_id=ids(bearings, 1),
+        bearing_meas=rng.uniform(-3, 3, nb).astype(np.float32),
+        bearing_omega=np.ones(nb, np.float32),
+        odom_src_id=ids(odom, 0),
+        odom_dst_id=ids(odom, 1),
+        odom_meas=rng.uniform(-1, 1, (no, 3)).astype(np.float32),
+        odom_omega=np.tile(np.diag([500.0, 500.0, 5000.0]).astype(np.float32), (no, 1, 1)),
+        fixed_pose_id=fixed,
+        bound=10.0,
+    )
+
+
+_BIG = 2**40
+_ID_CASES = {
+    "pose_ids_unsorted": (dict(
+        pose_ids=[7, 3, 11, 5],
+        bearings=[(11, 100), (3, 101), (7, 100), (5, 102), (3, 102), (7, 101)],
+        odom=[(7, 3), (3, 11), (11, 5)], fixed=11), "triangulate"),
+    "negative_and_near_2_40": (dict(
+        pose_ids=[_BIG + 1, -4, 0, _BIG - 3, -_BIG],
+        bearings=[(-4, -_BIG - 7), (_BIG + 1, _BIG + 9), (0, -1), (-_BIG, _BIG + 9),
+                  (_BIG - 3, -_BIG - 7), (_BIG + 1, -1)],
+        odom=[(_BIG + 1, -4), (-4, 0), (0, _BIG - 3), (_BIG - 3, -_BIG)]), "triangulate"),
+    "duplicate_pose_id": (dict(
+        pose_ids=[4, 9, 4, 2],
+        bearings=[(4, 50), (9, 50), (2, 51), (4, 51)],
+        odom=[(4, 9), (9, 4), (4, 2)], fixed=4), "triangulate"),
+    "file_init_unsorted": (dict(
+        pose_ids=[1, 2, 3], lm_ids=[30, 10, 20],
+        bearings=[(1, 20), (2, 30), (3, 10), (1, 10), (2, 20)],
+        odom=[(1, 2), (2, 3)]), "file"),
+    "file_init_duplicate_landmark": (dict(
+        pose_ids=[1, 2], lm_ids=[5, 6, 5], bearings=[(1, 5), (2, 6), (2, 5)],
+        odom=[(1, 2)]), "file"),
+    "file_init_unknown_landmark": (dict(
+        pose_ids=[1, 2], lm_ids=[10, 20], bearings=[(1, 10), (2, 40), (1, 20)],
+        odom=[(1, 2)]), "file"),
+    "unknown_bearing_pose": (dict(
+        pose_ids=[1, 2], bearings=[(1, 10), (8, 10), (6, 10)], odom=[(1, 2)]), "triangulate"),
+    "unknown_odom_pose": (dict(
+        pose_ids=[1, 2, 3], bearings=[(1, 10), (2, 10)], odom=[(1, 2), (2, 3), (3, 0)]),
+        "triangulate"),
+    "unknown_fix_pose": (dict(
+        pose_ids=[1, 2], bearings=[(1, 10), (2, 10)], odom=[(1, 2)], fixed=99), "triangulate"),
+    "no_bearing_edges": (dict(pose_ids=[5, 3, 8], odom=[(5, 3), (3, 8)], fixed=8), "triangulate"),
+}
+
+
+@pytest.mark.parametrize("case", list(_ID_CASES))
+def test_build_graph_ids_match(case):
+    """The sorted id lookup maps every id as the JAX package's dicts do
+    (a repeated id maps to its last position), and raises the same
+    ``KeyError`` for an id it does not know."""
+    kw, init = _ID_CASES[case]
+    parsed = _handmade(**kw)
+    try:
+        gj, mj = build_graph_jax(parsed, init=init)
+    except KeyError as e:
+        with pytest.raises(KeyError) as got:
+            build_graph(parsed, init=init, device="cpu")
+        assert got.value.args == e.args
+        return
+    gt, mt = build_graph(parsed, init=init, device="cpu")
+    for name in ("b_pose", "b_lm", "o_src", "o_dst", "fixed_pose_ix"):
+        assert getattr(gt, name).dtype == torch.int64
+        np.testing.assert_array_equal(getattr(gt, name).numpy(), np.asarray(getattr(gj, name)),
+                                      err_msg=name)
+    assert mt.lm_ids == mj.lm_ids and mt.pose_ids == mj.pose_ids
+    assert mt.fixed_pose_id == mj.fixed_pose_id
+    if case == "duplicate_pose_id":  # pose id 4 sits at positions 0 and 2: the last wins
+        assert gt.b_pose.tolist() == [2, 1, 3, 2] and int(gt.fixed_pose_ix) == 2
+
+
+@pytest.mark.parametrize("shape", [(301, 141, 3), (10000, 4000, 0)])
+def test_triangulation_reuses_graph_indices(monkeypatch, shape):
+    """The triangulation gets the graph's own uploaded index tensors, and
+    every index and landmark equals a build through per-id dicts bit for
+    bit."""
+    import boslam_torch.graph.build as build_mod
+
+    seen = []
+
+    def recording(*args, **kw):
+        seen.append(args)
+        return triangulate_landmarks(*args, **kw)
+
+    monkeypatch.setattr(build_mod, "triangulate_landmarks", recording)
+    n_poses, n_landmarks, seed = shape
+    ig, _ = generate_sequence(n_poses, n_landmarks, seed=seed)
+    g, meta = build_graph(ig, init="triangulate", device="cpu")
+    (args,) = seen
+    assert args[1] is g.b_pose and args[2] is g.b_lm and args[3] is g.b_meas
+
+    pose_ix = {pid: ix for ix, pid in enumerate(ig.pose_ids)}
+    lm_ids = sorted(set(int(i) for i in ig.bearing_lm_id))
+    lm_ix = {lid: ix for ix, lid in enumerate(lm_ids)}
+    want = {
+        "b_pose": [pose_ix[int(i)] for i in ig.bearing_pose_id],
+        "b_lm": [lm_ix[int(i)] for i in ig.bearing_lm_id],
+        "o_src": [pose_ix[int(i)] for i in ig.odom_src_id],
+        "o_dst": [pose_ix[int(i)] for i in ig.odom_dst_id],
+    }
+    for name, ix in want.items():
+        assert torch.equal(getattr(g, name), torch.tensor(ix, dtype=torch.int64)), name
+    landmarks = triangulate_landmarks(
+        g.poses, torch.tensor(want["b_pose"]), torch.tensor(want["b_lm"]),
+        torch.as_tensor(ig.bearing_meas, dtype=torch.float32), n_landmarks=len(lm_ids))
+    assert torch.equal(g.landmarks, landmarks)
+    assert meta.lm_ids == lm_ids and meta.pose_ids == list(ig.pose_ids)
 
 
 def test_triangulation_matches():
