@@ -13,15 +13,16 @@ needs one row gather:
 
 Padding slots carry omega = 0 (and index 0) and contribute exactly zero.
 The leading chain prefix of the odometry (edge e: src == e, dst == e + 1)
-makes its couplings shifts; edges past it go through a small gather and
-segment sum.  Packing is numpy on the host, once per solve; the grids then
-go to the graph's device.
+makes its couplings shifts; edges past it (loop closures) go through a
+small gather and segment sum, and are also listed per pose (``LoopRows``)
+for the fused CG body.  Packing is numpy on the host, once per solve; the
+grids then go to the graph's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +35,37 @@ from boslam_torch.utils.spans import span
 _GRIDS = ("p_lm", "p_meas", "p_omega", "l_pose", "l_meas", "l_omega")
 
 
+class LoopRows(NamedTuple):
+    """The odometry edges past the chain prefix, listed per pose (CSR).
+
+    Pose i's entries are ``start[i]:start[i + 1]``, in the order of their
+    edge index.  An edge e (src s, dst d) is listed twice: on row s with
+    ``edge`` e and ``nbr`` d (the term Ho[e] x[d]), and on row d with
+    ``edge`` ~e = -1 - e and ``nbr`` s (the term Ho[e]^T x[s]); an edge
+    with s == d lists its row s entry first."""
+
+    start: torch.Tensor  # i32 [NP + 1]
+    edge: torch.Tensor  # i32 [2 * loop edges]
+    nbr: torch.Tensor  # i32 [2 * loop edges]
+
+
+def loop_rows(o_src: np.ndarray, o_dst: np.ndarray, chain_len: int, n_poses: int) -> tuple:
+    """(start, edge, nbr) of ``LoopRows`` as numpy int32 arrays, for the
+    edges ``chain_len`` onwards; a ValueError where an edge joins a pose
+    outside ``[0, n_poses)`` (the fused CG body reads the list unchecked)."""
+    e = np.arange(chain_len, len(o_src), dtype=np.int64)
+    rows = np.concatenate([o_src[e], o_dst[e]])
+    if rows.size and not 0 <= rows.min() <= rows.max() < n_poses:
+        raise ValueError(f"loop closures join poses {rows.min()}..{rows.max()}, "
+                         f"not all of the {n_poses} poses")
+    edge = np.concatenate([e, ~e])
+    nbr = np.concatenate([o_dst[e], o_src[e]])
+    order = np.lexsort((edge < 0, np.concatenate([e, e]), rows))
+    start = np.zeros(n_poses + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n_poses), out=start[1:])
+    return start.astype(np.int32), edge[order].astype(np.int32), nbr[order].astype(np.int32)
+
+
 @dataclasses.dataclass
 class PackedEdges:
     """Bearing edges in both packings + odometry chain classification.
@@ -43,7 +75,9 @@ class PackedEdges:
     every pose.  Both are host values.  ``p_plan`` / ``l_plan`` are the
     windowed-gather plans of the two grids (None: plain gathers);
     ``l_virt`` i32[NLV] maps landmark-grid rows to landmarks (None: one row
-    per landmark).
+    per landmark).  ``loops`` lists the odometry edges past the chain
+    prefix per pose (None where the prefix is the whole odometry, or where
+    the packing came from elsewhere, ``from_numpy``).
     """
 
     p_lm: torch.Tensor  # i32 [NP, K] landmark index per slot (0 for padding)
@@ -57,6 +91,7 @@ class PackedEdges:
     p_plan: Optional[WindowPlan] = None
     l_plan: Optional[WindowPlan] = None
     l_virt: Optional[torch.Tensor] = None
+    loops: Optional[LoopRows] = None
 
     @property
     def K(self) -> int:
@@ -191,6 +226,12 @@ def pack_edges(g: FactorGraph, windows: bool = False,
     chain = chain_len == len(o_src) == NP_ - 1
 
     dev = g.device
+    loops = None
+    if chain_len < len(o_src):
+        with span("loops"):
+            loops = LoopRows(*(torch.as_tensor(a, device=dev)
+                               for a in loop_rows(o_src, o_dst, chain_len, NP_)))
+
     p_plan = l_plan = None
     if windows:
         with span("plan_windows"):
@@ -204,7 +245,7 @@ def pack_edges(g: FactorGraph, windows: bool = False,
         p_lm=on_dev(p_lm), p_meas=on_dev(p_meas), p_omega=on_dev(p_omega),
         l_pose=on_dev(l_pose), l_meas=on_dev(l_meas), l_omega=on_dev(l_omega),
         odometry_is_chain=bool(chain), chain_len=chain_len, p_plan=p_plan, l_plan=l_plan,
-        l_virt=None if l_virt is None else on_dev(l_virt),
+        l_virt=None if l_virt is None else on_dev(l_virt), loops=loops,
     )
     meta = PackedMeta(
         odometry_is_chain=bool(chain),

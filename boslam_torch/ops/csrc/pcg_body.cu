@@ -1,9 +1,12 @@
 // One iteration of block-Jacobi PCG on the packed Schur system, committed
 // where the loop still runs and frozen elsewhere: the body of
 // boslam_torch/solver/schur.py pcg with the matvec of
-// boslam_torch/solver/schur_packed.py packed_s_matvec, as four launches.
-// Plain C interface, loaded with ctypes by boslam_torch/ops/pcg_body.py,
-// whose pcg_body_plain is the same phases in PyTorch.
+// boslam_torch/solver/schur_packed.py packed_s_matvec, as four launches,
+// on an odometry that is a chain prefix and any number of loop-closure
+// edges past it.  Plain C interface, loaded with ctypes by
+// boslam_torch/ops/pcg_body.py; its plain twin is
+// boslam_torch/solver/schur_packed.py plain_cg_body, the same iteration in
+// PyTorch.
 //
 // It replaces no TPU kernel: the JAX package runs this body as XLA's fused
 // operations inside a while_loop on the device.  In PyTorch the body was
@@ -22,8 +25,9 @@
 //   1. landmark rows:  zrow[v] = sum_k Bl[v,k]^T (p m)[l_pose[v,k]]
 //   2. pose rows:      w = Hll^-1 (sum of the landmark's rows of zrow),
 //                      computed per gathered landmark; A p = Hpp p m + the
-//                      chain shifts - sum_k Bp[p,k] w[p_lm[p,k]], masked;
-//                      p^T A p partials per block
+//                      chain shifts + the row's loop closures
+//                      - sum_k Bp[p,k] w[p_lm[p,k]], masked; p^T A p
+//                      partials per block
 //   3. elementwise:    alpha; x + alpha p, r - alpha A p, z = M^-1 r; the
 //                      old scalars copied aside; r^T r, r^T z partials
 //   4. commit:         beta; x, r, z, p, x_best where the loop runs, the
@@ -36,6 +40,17 @@
 // summing the same partials in the same order, so the result does not
 // depend on scheduling and a body repeats to the bit; there is no float
 // atomic.  All arithmetic is f32 (FMA contraction allowed).
+//
+// A loop-closure edge e (pose s -> d, coupling Ho[e]) is listed twice in a
+// per-pose CSR built once a solve (boslam_torch/graph/packed.py LoopRows):
+// on row s as Ho[e] (p m)[d] and on row d as Ho[e]^T (p m)[s], each row's
+// entries in the order of their edge index.  The row's group sums them as
+// it sums the slots (each lane every G-th entry, then the butterfly), and
+// lane 0 adds that sum after the chain shifts, so the loop terms too are
+// summed in a fixed order without atomics.  On a chain alone nothing is
+// added, and the body's bits are those it had without loop rows.  The list
+// is checked on the host when it is built (every neighbour a pose, every
+// edge past the chain); the kernel reads it as it is.
 //
 // A grid with a windowed-gather plan reads its gathered vector through the
 // plan's window (boslam_torch/ops/windowed_gather.py): a block of ROWS rows
@@ -51,7 +66,8 @@ struct PCGBodyArgs {
   // the packed system, fixed for a pcg call
   const float *hpp;      // [np, 3, 3] damped pose blocks
   const float *minv;     // [np, 3, 3] block-Jacobi inverses
-  const float *ho;       // [nc, 3, 3] chain couplings, edge e: pose e -> e + 1
+  const float *ho;       // [no, 3, 3] odometry couplings: the chain's first
+                         // (edge e < nc: pose e -> e + 1), then the loop closures
   const float *mask;     // [np] gauge mask
   const float *hll_inv;  // [nl, 2, 2]
   const float *bp;       // [np, kp, 3, 2] pose-packed coupling blocks
@@ -62,6 +78,9 @@ struct PCGBodyArgs {
   const int *virt_start; // [nl + 1] each landmark's first entry of virt_order
   const int *p_starts;   // the pose grid's window starts, null: plain gathers
   const int *l_starts;   // the landmark grid's
+  const int *loop_start; // [np + 1] each pose's first loop entry, null: no loop closure
+  const int *loop_edge;  // [loop entries] e: Ho[e] (p m)[nbr]; ~e: Ho[e]^T (p m)[nbr]
+  const int *loop_nbr;   // [loop entries] the edge's other pose
   const float *b2;       // [] |rhs|^2, clamped
   // the state read, in schur.CGState's order: iterate, residual,
   // preconditioned residual, direction, r^T z, r^T r, breakdowns,
@@ -80,7 +99,7 @@ struct PCGBodyArgs {
   float *ap, *xn, *rn, *zn;   // [np, 3]
   float *part;                // [pose blocks + 2 * elementwise blocks]
   float *snap;                // [8]: rz, rr, rr_best, pAp, nbrk, k, active (as bits)
-  int np, nl, nlv, kp, kl, nc;  // kp, kl: slots of a pose, landmark row
+  int np, nl, nlv, kp, kl, nc, no;  // kp, kl: slots of a pose, landmark row
   int p_window, p_tile_rows, l_window, l_tile_rows;
   int restarts, max_iters;
   float tol2, tiny;
@@ -245,6 +264,23 @@ __global__ void __launch_bounds__(THREADS) pcg_pose_rows_kernel(const PCGBodyArg
     c0 = group_sum<G>(c0);
     c1 = group_sum<G>(c1);
     c2 = group_sum<G>(c2);
+    // the row's loop closures, each lane every G-th entry (see the header)
+    float loop[3] = {0.0f, 0.0f, 0.0f};
+    if (a.loop_start != nullptr) {  // the same in every block
+      const int j_end = live ? a.loop_start[i + 1] : 0;
+      for (int j = (live ? a.loop_start[i] : 0) + lane; j < j_end; j += G) {
+        const int code = a.loop_edge[j], n = a.loop_nbr[j];
+        const float *H = a.ho + 9 * (code >= 0 ? code : ~code);
+        const int rs = code >= 0 ? 3 : 1, cs = code >= 0 ? 1 : 3;  // H[rs c + cs k]
+        const float mn = a.mask[n];
+        const float x0 = a.p[3 * n] * mn, x1 = a.p[3 * n + 1] * mn, x2 = a.p[3 * n + 2] * mn;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          loop[c] += H[rs * c] * x0 + H[rs * c + cs] * x1 + H[rs * c + 2 * cs] * x2;
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) loop[c] = group_sum<G>(loop[c]);
+    }
     if (live && lane == 0) {
       const float m = a.mask[i];
       float pm[3], pv[3], y[3] = {0.0f, 0.0f, 0.0f};
@@ -267,6 +303,10 @@ __global__ void __launch_bounds__(THREADS) pcg_pose_rows_kernel(const PCGBodyArg
         const float b0 = a.p[3 * i - 3] * mb, b1 = a.p[3 * i - 2] * mb, b2 = a.p[3 * i - 1] * mb;
 #pragma unroll
         for (int c = 0; c < 3; ++c) y[c] += H[c] * b0 + H[3 + c] * b1 + H[6 + c] * b2;
+      }
+      if (a.loop_start != nullptr) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) y[c] += loop[c];
       }
       const float corr[3] = {c0, c1, c2};
       const float *Hp = a.hpp + 9 * i;
@@ -413,7 +453,7 @@ extern "C" {
 int boslam_pcg_body(const PCGBodyArgs *args, void *stream_ptr) {
   const PCGBodyArgs a = *args;
   if (a.np < 1 || a.nl < 0 || a.nlv < 0 || a.kp < 1 || a.kl < 1 || a.nc < 0 || a.nc > a.np - 1 ||
-      (a.virt_order == nullptr && a.nlv != a.nl) ||
+      a.nc > a.no || (a.virt_order == nullptr && a.nlv != a.nl) ||
       !plan_fits(a.p_starts, a.p_window, a.p_tile_rows) ||
       !plan_fits(a.l_starts, a.l_window, a.l_tile_rows))
     return (int)cudaErrorInvalidValue;

@@ -3,9 +3,10 @@ hand-written CUDA body (``csrc/pcg_body.cu``).
 
 The iteration is ``solver/schur.py`` ``pcg``'s body (``cg_step``) over the
 matvec of ``solver/schur_packed.py`` ``packed_s_matvec``, for the systems
-whose odometry is the chain prefix alone, whose coupling blocks are f32 and
-whose preconditioner is the block-Jacobi 3x3 inverse array.  That body is
-the kernel's plain twin (``schur_packed.plain_cg_body``).  ``pcg`` runs
+whose odometry is a chain prefix and any number of loop-closure edges past
+it (listed per pose, ``graph/packed.LoopRows``), whose coupling blocks are
+f32 and whose preconditioner is the block-Jacobi 3x3 inverse array.  That
+body is the kernel's plain twin (``schur_packed.plain_cg_body``).  ``pcg`` runs
 either body when handed it as ``make_body``; on the card the packed
 solver hands it the kernel's (``schur_packed.fused_cg_body``).  It
 replaces no TPU kernel: the JAX package leaves the body to XLA inside a
@@ -30,6 +31,7 @@ import dataclasses
 
 import torch
 
+from boslam_torch.graph.packed import LoopRows
 from boslam_torch.ops import _build
 from boslam_torch.ops.counters import counter
 from boslam_torch.ops.windowed_gather import WindowPlan
@@ -41,15 +43,18 @@ ROWS = 32  # grid rows a block of the kernel takes (csrc/pcg_body.cu)
 class PCGSystem:
     """The packed system and the loop's constants of one ``pcg`` call.
 
-    ``Ho`` holds the chain couplings (edge e: pose e -> e + 1), ``mask`` is
-    the gauge mask f32[NP, 1], ``Minv`` the block-Jacobi inverses; ``b2``
-    the device scalar |rhs|^2 (clamped) of the loop condition, with ``tol2``,
-    ``restarts`` and ``max_iters`` as ``pcg`` takes them.  Checked and bound
-    to the kernel's workspace when made."""
+    ``Ho`` holds the odometry couplings: the chain's first (edge e: pose
+    e -> e + 1), then the loop closures, which ``loops`` lists per pose
+    (None: every row is the chain's) as ``graph/packed.loop_rows`` builds
+    and checks it: the kernel reads the list unchecked.  ``mask`` is the
+    gauge mask f32[NP, 1], ``Minv`` the block-Jacobi inverses; ``b2`` the
+    device scalar |rhs|^2 (clamped) of the loop condition, with ``tol2``,
+    ``restarts`` and ``max_iters`` as ``pcg`` takes them.  Checked and
+    bound to the kernel's workspace when made."""
 
     Hpp: torch.Tensor  # [NP, 3, 3]
     Minv: torch.Tensor  # [NP, 3, 3]
-    Ho: torch.Tensor  # [NC, 3, 3]
+    Ho: torch.Tensor  # [NO, 3, 3]
     mask: torch.Tensor  # [NP, 1]
     Hll_inv: torch.Tensor  # [NL, 2, 2]
     Bp: torch.Tensor  # [NP, K, 3, 2]
@@ -63,6 +68,7 @@ class PCGSystem:
     tol2: float
     restarts: int
     max_iters: int
+    loops: "LoopRows | None" = None
     kernel: "_Kernel" = dataclasses.field(init=False)
 
     def __post_init__(self):
@@ -85,10 +91,11 @@ counter(pcg_body, "launches")
 # ---------------------------------------------------------------- kernel
 
 _SYSTEM_PTRS = ("hpp", "minv", "ho", "mask", "hll_inv", "bp", "p_lm", "bl", "l_pose",
-                "virt_order", "virt_start", "p_starts", "l_starts", "b2")
+                "virt_order", "virt_start", "p_starts", "l_starts", "loop_start", "loop_edge",
+                "loop_nbr", "b2")
 _STATE = ("x", "r", "z", "p", "rz", "rr", "nbrk", "k", "x_best", "rr_best", "active")  # CGState
 _WORK = ("zrow", "ap", "xn", "rn", "zn", "part", "snap")
-_INTS = ("np", "nl", "nlv", "kp", "kl", "nc", "p_window", "p_tile_rows", "l_window",
+_INTS = ("np", "nl", "nlv", "kp", "kl", "nc", "no", "p_window", "p_tile_rows", "l_window",
          "l_tile_rows", "restarts", "max_iters")
 
 
@@ -125,9 +132,11 @@ class _Kernel:
         NP, NL = S.Hpp.shape[0], S.Hll_inv.shape[0]
         NLV, K2 = S.l_pose.shape
         K = S.p_lm.shape[1]
+        NO = S.Ho.shape[0]
+        NC = NO if S.loops is None else NO - S.loops.edge.shape[0] // 2  # each listed twice
         f32, i32 = torch.float32, torch.int32
         shapes = dict(Hpp=((NP, 3, 3), f32), Minv=((NP, 3, 3), f32),
-                      Ho=((S.Ho.shape[0], 3, 3), f32), mask=((NP, 1), f32),
+                      Ho=((NO, 3, 3), f32), mask=((NP, 1), f32),
                       Hll_inv=((NL, 2, 2), f32), Bp=((NP, K, 3, 2), f32),
                       p_lm=((NP, K), i32), Bl=((NLV, K2, 3, 2), f32), l_pose=((NLV, K2), i32),
                       b2=((), f32))
@@ -140,9 +149,18 @@ class _Kernel:
                     or not t.is_contiguous()):
                 raise ValueError(f"pcg_body: {name} must be contiguous {dtype} {shape} on {dev}, "
                                  f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if S.Ho.shape[0] > NP - 1 or K < 1 or K2 < 1:
-            raise ValueError(f"pcg_body: {S.Ho.shape[0]} chain edges, slots {K}, {K2} "
+        if not 0 <= NC <= NP - 1 or K < 1 or K2 < 1:
+            raise ValueError(f"pcg_body: {NC} chain edges of {NO}, slots {K}, {K2} "
                              f"for {NP} poses")
+        if S.loops is not None:
+            n = S.loops.edge.shape[0]
+            for name, t, shape in (("start", S.loops.start, (NP + 1,)),
+                                   ("edge", S.loops.edge, (n,)), ("nbr", S.loops.nbr, (n,))):
+                if (tuple(t.shape) != shape or t.dtype != i32 or t.device != dev
+                        or not t.is_contiguous()):
+                    raise ValueError(f"pcg_body: loop rows' {name} must be contiguous {i32} "
+                                     f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} "
+                                     f"on {t.device}")
         for plan, rows in ((S.p_plan, NP), (S.l_plan, NLV)):
             if plan is not None and (plan.starts.dtype != i32 or plan.starts.device != dev
                                      or plan.starts.dim() != 1 or plan.tile_rows < 1
@@ -168,6 +186,8 @@ class _Kernel:
         for name, plan in (("p_starts", S.p_plan), ("l_starts", S.l_plan)):
             if plan is not None:
                 keep[name] = plan.starts
+        if S.loops is not None:
+            keep.update(loop_start=S.loops.start, loop_edge=S.loops.edge, loop_nbr=S.loops.nbr)
         blocks = -(-NP // ROWS) + 2 * -(-NP // 256)
         keep.update(zrow=torch.empty((NLV, 2), dtype=f32, device=dev),
                     **{n: torch.empty((NP, 3), dtype=f32, device=dev)
@@ -180,7 +200,7 @@ class _Kernel:
         self._lib = _lib()
         self._args = _Args(
             **{n: t.data_ptr() for n, t in keep.items()},
-            np=NP, nl=NL, nlv=NLV, kp=K, kl=K2, nc=S.Ho.shape[0],
+            np=NP, nl=NL, nlv=NLV, kp=K, kl=K2, nc=NC, no=NO,
             p_window=S.p_plan.window if S.p_plan else 0,
             p_tile_rows=S.p_plan.tile_rows if S.p_plan else 0,
             l_window=S.l_plan.window if S.l_plan else 0,

@@ -491,14 +491,17 @@ def _flat_preconditioner(blocks: SchurBlocks, g: FactorGraph, cfg: SolverConfig,
     return preconditioner_apply(which, s_diag_blocks(blocks, g, mesh), band, mask, cfg)
 
 
-def cg_stats(n_iters, rel_res2, breakdown, info, device) -> dict:
+def cg_stats(n_iters, rel_res2, breakdown, info, device, loop_rows: bool = False) -> dict:
     """The CG stats of one solve, as device tensors; the host counts are
     also charged to the open root span as "cg.bodies", "cg.polls",
-    "cg.graph_bodies" and "cg.fused_bodies"."""
+    "cg.graph_bodies", "cg.fused_bodies" and "cg.loop_fused_bodies", the
+    fused bodies where the system carries loop-closure rows
+    (``loop_rows``, which the packed solver sets)."""
     count("cg.bodies", info["matvecs"])
     count("cg.polls", info["polls"])
     count("cg.graph_bodies", info["graph_bodies"])
     count("cg.fused_bodies", info["fused_bodies"])
+    count("cg.loop_fused_bodies", info["fused_bodies"] if loop_rows else 0)
     return {
         "cg_iters": n_iters,
         "cg_rel_res2": rel_res2,

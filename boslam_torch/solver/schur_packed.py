@@ -5,17 +5,19 @@ The math of ``schur.py``: every vertex-keyed reduction is a masked sum over
 the packed slot axis, and the indexed operations are row gathers of the
 slot grids, two per CG matvec.  The chain-prefix odometry couplings are
 shifts; loop-closure edges past the prefix go through a small gather and
-segment sum.  A grid with a windowed-gather plan gathers through the
-windowed kernel (``ops/windowed_gather.py``), one launch per gather: two in
-the build, one for the reduced rhs, one in ``packed_s_diag``, two per
-matvec and one in the back-substitution, so 5 + 2 k per outer iteration
-with k matvecs (LM's cost check adds one; "bband" adds one for its
-assembly).  On the card, the solver hands ``pcg`` the kernel's body
+segment sum (in the fused body, through their per-pose lists,
+``graph/packed.LoopRows``).  A grid with a windowed-gather plan gathers
+through the windowed kernel (``ops/windowed_gather.py``), one launch per
+gather: two in the build, one for the reduced rhs, one in
+``packed_s_diag``, two per matvec and one in the back-substitution, so
+5 + 2 k per outer iteration with k matvecs (LM's cost check adds one;
+"bband" adds one for its assembly).  On the card, the solver hands ``pcg`` the kernel's body
 (``fused_cg_body``) where ``fused_body_rule`` admits the system from the
-preconditioner's resolved name (no mesh, block-Jacobi, f32 blocks, a chain
-odometry): each CG body is then one ``ops/pcg_body.py`` call, four launches
-that read both grids through their plans themselves, so its bodies launch
-no ``windowed_take``.  With ``coupling_dtype="bfloat16"`` the coupling
+preconditioner's resolved name (no mesh, block-Jacobi, f32 blocks, no row
+chunks; the odometry a chain prefix with or without loop closures past
+it): each CG body is then one ``ops/pcg_body.py`` call, four launches that
+read both grids through their plans themselves, so its bodies launch no
+``windowed_take``.  With ``coupling_dtype="bfloat16"`` the coupling
 blocks are stored bf16 and every contraction with them (``_couple``)
 rounds the other operand to bf16 too and sums in f32, as the JAX package's
 MXU-native bf16 x bf16 -> f32 einsum; the CG tolerance is then clamped to
@@ -388,12 +390,14 @@ def fused_body_rule(blocks: PackedBlocks, pk: PackedEdges, which: str, row_chunk
                     mesh=None) -> bool:
     """Whether the CG body of this system may be one ``ops/pcg_body.py``
     call: no mesh, block-Jacobi as the resolved preconditioner ``which``,
-    f32 coupling blocks, no row chunks and an odometry that is its chain
-    prefix alone.  The solver adds the last condition, a CUDA device;
-    every other system keeps the body of ``pcg``."""
+    f32 coupling blocks, no row chunks, and an odometry that is its chain
+    prefix, or a chain prefix and loop closures listed per pose
+    (``pk.loops``, which ``pack_edges`` builds).  The solver adds the last
+    condition, a CUDA device; every other system keeps the body of
+    ``pcg``."""
     return (mesh is None and which == "block_jacobi"
             and blocks.Bp.dtype == blocks.Bl.dtype == torch.float32 and row_chunk == 0
-            and pk.chain_len == blocks.Ho_sd.shape[0])
+            and (pk.chain_len == blocks.Ho_sd.shape[0] or pk.loops is not None))
 
 
 def plain_cg_body(blocks: PackedBlocks, pk: PackedEdges, mask, precond, b2, tol2: float,
@@ -414,10 +418,11 @@ def plain_cg_body(blocks: PackedBlocks, pk: PackedEdges, mask, precond, b2, tol2
 def fused_cg_body(blocks: PackedBlocks, pk: PackedEdges, mask, precond, b2, tol2: float,
                   restarts: int, max_iters: int):
     """``plain_cg_body`` as one ``pcg_body`` call on the card, which charges
-    the two gathers it makes by route (``gather_counts``)."""
+    the two gathers it makes by route (``gather_counts``).  The loop
+    closures' couplings are ``blocks.Ho_sd[pk.chain_len:]`` in place."""
     system = PCGSystem(blocks.Hpp_diag, precond, blocks.Ho_sd, mask, blocks.Hll_inv, blocks.Bp,
                        pk.p_lm, blocks.Bl, pk.l_pose, pk.l_virt, pk.p_plan, pk.l_plan, b2, tol2,
-                       restarts, max_iters)
+                       restarts, max_iters, loops=pk.loops)
     windowed = (pk.p_plan is not None) + (pk.l_plan is not None)
 
     def body(s: CGState, out: CGState | None = None) -> CGState:
@@ -472,7 +477,8 @@ def schur_packed_build_and_solve(g: FactorGraph, pk: PackedEdges, cfg: SolverCon
         dl = torch.einsum("lij,lj->li", blocks.Hll_inv, -blocks.bl - hlp_dp)
 
         dp, dl, ok = _nan_guard(dp, dl)
-        stats.update(cg_stats(n_iters, rel_res2, breakdown, info, g.device))
+        stats.update(cg_stats(n_iters, rel_res2, breakdown, info, g.device,
+                              loop_rows=pk.loops is not None))
         stats["cg_tol_effective"] = torch.full((), cg_tol, dtype=torch.float32, device=g.device)
     return dp, dl, stats, ok
 

@@ -302,17 +302,19 @@ def windowed_take_bytes(R: int, K: int, M: int, C: int) -> float:
 
 
 def pcg_body_work(NP: int, NL: int, NLV: int, K: int, K2: int, NC: int,
-                  split: bool) -> tuple[float, float]:
+                  split: bool, NLC: int = 0) -> tuple[float, float]:
     """(FMAs, bytes) of one fused block-Jacobi CG body on the packed system
     (``ops/pcg_body.py``) of NP poses with K slots each, NLV landmark rows
-    of K2 slots over NL landmarks (``split``: rows mapped to landmarks) and
-    NC chain edges.  FMAs: the 3x2 block products of both grids (6 a slot),
-    Hll^-1 per gathered pose slot (4), Hpp and the chain's two 3x3 products
-    (27 a pose), M^-1 (9), the three dots and the two updates (15).  Bytes:
-    the inputs once (coupling blocks and slot indices, Hpp, M^-1, the chain
-    blocks, Hll^-1, the mask, a split grid's row maps, the state read: x, r,
-    p, x_best) and the state written (x, r, z, p, x_best)."""
-    fmas = 6 * NLV * K2 + 10 * NP * K + 51 * NP
-    nbytes = 4 * (7 * NP * K + 7 * NLV * K2 + 18 * NP + 9 * NC + 4 * NL + NP
+    of K2 slots over NL landmarks (``split``: rows mapped to landmarks), NC
+    chain edges and NLC loop-closure edges.  FMAs: the 3x2 block products
+    of both grids (6 a slot), Hll^-1 per gathered pose slot (4), Hpp and the
+    chain's two 3x3 products (27 a pose), M^-1 (9), the three dots and the
+    two updates (15), a loop closure's two 3x3 products (18).  Bytes: the
+    inputs once (coupling blocks and slot indices, Hpp, M^-1, the chain
+    blocks, a loop closure's block and its two poses, Hll^-1, the mask, a
+    split grid's row maps, the state read: x, r, p, x_best) and the state
+    written (x, r, z, p, x_best)."""
+    fmas = 6 * NLV * K2 + 10 * NP * K + 51 * NP + 18 * NLC
+    nbytes = 4 * (7 * NP * K + 7 * NLV * K2 + 18 * NP + 9 * NC + 11 * NLC + 4 * NL + NP
                   + (NLV + NL + 1 if split else 0) + 27 * NP)
     return float(fmas), float(nbytes)

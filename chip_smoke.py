@@ -32,11 +32,12 @@ gather="windowed") on 10k and 100k corridor graphs, its launches held to
 CG body one pcg_body launch, which reads its gathers itself) and its chi2
 to the CPU run and the card's plain-gather run; and, on a 10k default walk
 whose grids the planner refuses, packed GN, packed LM, flat schur_cg and a
-GNC LM run.  The fused CG body (pcg_body): the benchmark's 10k walk and
-corridor solved as their cells solve them, with one pcg_body launch held
-per CG body; then the kernel held against its plain twin and against the
-loop with its own body on both graphs, and timed alone
-(tools/port_pcg_body_probe.py).
+GNC LM run.  The fused CG body (pcg_body): the benchmark's 10k walk,
+corridor and loop-closing walk solved as their cells solve them, with one
+pcg_body launch held per CG body (on the loop-closing walk every body's
+system carries loop-closure rows); then the kernel held against its plain
+twin and against the loop with its own body on the three graphs, and
+timed alone (tools/port_pcg_body_probe.py).
 The two-level preconditioner runs on the 10k corridor (both cycles, held
 to the CPU run) and on the 100k corridor beside block-Jacobi (CG
 breakdowns, iterations, ms and memory per outer iteration).
@@ -857,26 +858,35 @@ def run_bf16(torch, solve_packed, g, cfg, counters, size, f32, f32_name):
 PCG_CAP_X = 0.05
 PCG_CAP_RES = 0.1
 # the benchmark's two cells' graphs, (turn_every, gather): its walk_10k and
-# corridor_10k configurations, generate_sequence(10000, 4000), seed 0
-FUSED_CELLS = {"walk": (50, "auto"), "corridor": (10**9, "windowed")}
+# corridor_10k and walk_10k_loops configurations, generate_sequence(10000,
+# 4000), seed 0: (turn_every, gather, loop closures)
+FUSED_CELLS = {"walk": (50, "auto", 0), "corridor": (10**9, "windowed", 0),
+               "loops": (50, "auto", 5583)}
 
 
 def run_fused_cells(torch, counters):
-    """The benchmark's two cells as their solves run, on the card with
-    every count at 0: the 10k walk (split landmark rows, plain gathers) and
-    the 10k corridor (both grids windowed), 5 GN outers of block-Jacobi PCG
-    to its cap from the triangulated start.  Held: one ``pcg_body`` launch
-    per CG body, 5 ``windowed_take`` an outer on the corridor and none on
-    the walk, no host wait inside the solve (``run_packed``), chi2 falling.
+    """The benchmark's three cells as their solves run, on the card with
+    every count at 0: the 10k walk (split landmark rows, plain gathers), the
+    10k corridor (both grids windowed) and the 10k walk with M3500's density
+    of loop closures, 5 GN outers of block-Jacobi PCG to its cap from the
+    triangulated start.  Held: one ``pcg_body`` launch per CG body, 5
+    ``windowed_take`` an outer on the corridor and none on the walks, no
+    host wait inside the solve (``run_packed``), chi2 falling; the
+    solve's root "cg.fused_bodies" equal to "cg.bodies", and its packing
+    listing loop rows (span "solve_packed/pack/loops") and
+    "cg.loop_fused_bodies" equal to both on the loop-closing walk alone (0
+    on the others).
     Returns the ``pcg_body`` launches."""
     from boslam_torch.config import SolverConfig
     from boslam_torch.graph.build import build_graph
     from boslam_torch.solver.optimizer import solve_packed
     from boslam_torch.synth import generate_sequence
+    from boslam_torch.utils import spans
 
     launches = 0
-    for kind, (turn_every, gather) in FUSED_CELLS.items():
-        g_cpu, _, _ = _corridor(generate_sequence, build_graph, 10000, 4000, 0, turn_every)
+    for kind, (turn_every, gather, loops) in FUSED_CELLS.items():
+        g_cpu, _, _ = _corridor(generate_sequence, build_graph, 10000, 4000, 0, turn_every,
+                                loop_closures=loops)
         cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=5,
                            cg_iters=100, cg_tol=1e-5, gather=gather)
         label = f"fused CG body, {kind} 10k"
@@ -885,7 +895,16 @@ def run_fused_cells(torch, counters):
         c = st["chi2_robust"]
         if not (np.isfinite(c).all() and c[-1] < c[0]):
             raise AssertionError(f"{label}: chi2 {c.tolist()} did not descend")
+        root = [r for r in spans.records() if r.name == "solve_packed"][-1]
+        bodies = tuple(root.counters[k] for k in ("cg.bodies", "cg.fused_bodies",
+                                                   "cg.loop_fused_bodies"))
+        listed = "solve_packed/pack/loops" in root.paths
+        want = (counts["pcg_body"],) * 2 + (counts["pcg_body"] if loops else 0,)
+        if bodies != want or listed != bool(loops):
+            raise AssertionError(f"{label}: bodies, fused, with loop rows {bodies}, loop rows "
+                                 f"listed {listed}, pcg_body launches {counts['pcg_body']}")
         print(f"{label}: " + json.dumps(dict(launches=counts, chi2=c.tolist(),
+                                             loop_closures=g_cpu.n_odometry - 9999,
                                              **_cg_summary(st, cfg, secs))))
         launches += counts["pcg_body"]
     return launches
@@ -893,14 +912,14 @@ def run_fused_cells(torch, counters):
 
 def check_pcg_body(torch, pb, counters, fused_100k):
     """The fused CG body on the benchmark's 10k walk (split landmark rows,
-    plain gathers) and corridor (both grids windowed): the cells' solves
-    (``run_fused_cells``), then the kernel against its plain twin in one
-    body (and both against the twin in float64), a frozen state kept, two
-    replays bit-equal, ``pcg`` to the cap against the loop with its own
-    body, one body's time alone beside the twin's (CUDA events over graph
-    replays) and its bound.  Returns the kernel table's row (the walk's
-    shape and times; the launches of the cells' solves and of the 100k
-    corridor's, ``fused_100k``)."""
+    plain gathers), corridor (both grids windowed) and loop-closing walk:
+    the cells' solves (``run_fused_cells``), then the kernel against its
+    plain twin in one body (and both against the twin in float64), a frozen
+    state kept, two replays bit-equal, ``pcg`` to the cap against the loop
+    with its own body, one body's time alone beside the twin's (CUDA events
+    over graph replays) and its bound.  Returns the kernel table's row (the
+    walk's shape and times; the launches of the cells' solves and of the
+    100k corridor's, ``fused_100k``)."""
     from boslam_torch.utils import roofline
 
     t0 = time.perf_counter()
@@ -908,7 +927,7 @@ def check_pcg_body(torch, pb, counters, fused_100k):
     probe = _tool("port_pcg_body_probe")
     spec = roofline.chip_spec()
     rows = {}
-    for kind in ("walk", "corridor"):
+    for kind in probe.GRAPHS:
         rec = probe.run_graph(kind, 10000, 0, DEV)
         for where in ("start", "mid_chain"):
             one = rec[where]
@@ -923,7 +942,7 @@ def check_pcg_body(torch, pb, counters, fused_100k):
         split = rec["split_rows"]
         fmas, nbytes = roofline.pcg_body_work(rec["poses"], rec["landmarks"],
                                               rec["landmark_rows"], *rec["slots"],
-                                              rec["poses"] - 1, split)
+                                              rec["chain"], split, rec["loop_closures"])
         rec["bound_ms"], rec["bound_by"] = roofline.bound_ms(fmas, nbytes, spec)
         print(f"pcg_body {kind}: " + json.dumps(rec))
         rows[kind] = rec
@@ -940,7 +959,10 @@ def check_pcg_body(torch, pb, counters, fused_100k):
                 launches_per_call=per_call,
                 shape=[walk["poses"], walk["landmark_rows"]] + walk["slots"],
                 corridor_ms=rows["corridor"]["ms_alone"]["kernel"],
-                corridor_plain_ms=rows["corridor"]["ms_alone"]["twin"])
+                corridor_plain_ms=rows["corridor"]["ms_alone"]["twin"],
+                loops_ms=rows["loops"]["ms_alone"]["kernel"],
+                loops_plain_ms=rows["loops"]["ms_alone"]["twin"],
+                loops_bound_ms=rows["loops"]["bound_ms"])
 
 
 def run_scale_phases(torch, wg, counters, solve, generate_sequence, build_graph, SolverConfig):
@@ -2224,8 +2246,9 @@ def main() -> int:
                   "bf16 coupling (landmark grid of the 100k corridor)"),
         dict(name="pcg_body", route="cuda", source="boslam_torch/ops/csrc/pcg_body.cu",
              replaces=None, **pcg_row,
-             path="packed block-Jacobi CG on a chain: the benchmark's 10k walk (plain) and "
-                  "corridor (windowed) solves, the 100k corridor"),
+             path="packed block-Jacobi CG: the benchmark's 10k walk (plain), corridor "
+                  "(windowed) and loop-closing walk (chain and loop rows) solves, the 100k "
+                  "corridor"),
     ]
     if not all(k["launches"] > 0 and k["launches_per_call"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched: {kernels}")

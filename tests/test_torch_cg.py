@@ -552,7 +552,9 @@ def test_fused_body_rule():
     """The fused body is chosen from what the solver sees: on a chain
     odometry with f32 blocks, no mesh, no row chunks and block-Jacobi as the
     resolved preconditioner, and nowhere else (btridiag, two_level, bband,
-    bf16 blocks, a mesh, row chunks, edges past the chain prefix); the
+    bf16 blocks, a mesh, row chunks, edges past the chain prefix that the
+    packing did not list per pose: tests/test_torch_loop_closures.py holds
+    the listed ones); the
     packed path resolves "auto" on these chains to btridiag, so it does not
     fuse; ``pcg`` runs a handed body in every body and its own otherwise;
     the solver hands one on the card alone, so the CPU keeps the body of

@@ -805,18 +805,23 @@ def _pcg_calls(monkeypatch, g, cfg, poll_every=None):
 
 
 @pytest.mark.parametrize("poll_every", [1, 4, 7])
-@pytest.mark.parametrize("precond", ["block_jacobi", "btridiag", "two_level", "bband"])
-def test_captured_pcg_matches_eager_bitwise(cuda, monkeypatch, precond, poll_every):
+@pytest.mark.parametrize("precond, loop_closures", [
+    ("block_jacobi", 0), ("btridiag", 0), ("two_level", 0), ("bband", 0),
+    pytest.param("block_jacobi", 1116, id="block_jacobi-loops")])
+def test_captured_pcg_matches_eager_bitwise(cuda, monkeypatch, precond, loop_closures,
+                                            poll_every):
     """``pcg`` with its blocks replayed as a CUDA graph against the same
     call with every body launched from the host, on a walk whose body sums
-    nothing with atomics (no loop closure, landmark rows not split): the
-    same bits of x, n_iters, rel_res2 and breakdown, the same host counts,
-    and every body after the first replayed, through a cap of 30 that is no
-    multiple of the poll interval."""
+    nothing with atomics (no loop closure, landmark rows not split; or,
+    under block-Jacobi, M3500's density of loop closures, which the fused
+    body sums per pose in a fixed order): the same bits of x, n_iters,
+    rel_res2 and breakdown, the same host counts, and every body after the
+    first replayed, through a cap of 30 that is no multiple of the poll
+    interval."""
     from boslam_torch.config import SolverConfig
     from boslam_torch.solver import schur
 
-    g = _graph(2000, 800, cuda)
+    g = _graph(2000, 800, cuda, loop_closures)
     cfg = SolverConfig(linear_solver="schur_cg", preconditioner=precond, lm_split=0, iters=2,
                        cg_iters=30, cg_tol=1e-12)
     calls = _pcg_calls(monkeypatch, g, cfg, poll_every)
@@ -1102,8 +1107,9 @@ _PACKED_10K = {}
 
 def _packed_10k(kind):
     """The first GN outer's packed system of the benchmark's 10k walk (split
-    landmark rows, plain gathers) or corridor (both grids windowed), block-
-    Jacobi: (blocks, pk, mask, precond, rhs, graph), built once per run."""
+    landmark rows, plain gathers), corridor (both grids windowed) or
+    loop-closing walk (the walk with 5,583 loop closures), block-Jacobi:
+    (blocks, pk, mask, precond, rhs, graph), built once per run."""
     if kind not in _PACKED_10K:
         _PACKED_10K[kind] = _pcg_body_probe().packed_system(kind, 10000, 0, "cuda")
     return _PACKED_10K[kind]
@@ -1116,7 +1122,7 @@ PCG_CAP_X = 0.05
 PCG_CAP_RES = 0.1
 
 
-@pytest.mark.parametrize("kind", ["walk", "corridor"])
+@pytest.mark.parametrize("kind", ["walk", "corridor", "loops"])
 def test_fused_body_one_body_on_the_card(cuda, kind):
     """The kernel's body from the start state and from a mid-loop state
     with a fixed pose mid-chain, both against the twin in float64 within
@@ -1126,8 +1132,9 @@ def test_fused_body_one_body_on_the_card(cuda, kind):
     bit-equal."""
     probe = _pcg_body_probe()
     blocks, pk, mask, precond, rhs, g = _packed_10k(kind)
-    assert (pk.l_virt is not None) == (kind == "walk")
+    assert (pk.l_virt is not None) == (kind != "corridor")
     assert (pk.p_plan is not None and pk.l_plan is not None) == (kind == "corridor")
+    assert (pk.loops is not None) == (kind == "loops")
     bound = probe.bind(blocks, pk, mask, precond, rhs)
     mid = torch.ones_like(mask)
     mid[g.n_poses // 2] = 0.0
@@ -1165,7 +1172,7 @@ def test_fused_body_one_body_on_the_card(cuda, kind):
     assert not torch.equal(outs[0][0], s.x)
 
 
-@pytest.mark.parametrize("kind", ["walk", "corridor"])
+@pytest.mark.parametrize("kind", ["walk", "corridor", "loops"])
 def test_fused_pcg_to_the_cap_on_the_card(cuda, kind):
     """``pcg`` with the fused body, captured, against ``pcg`` with its own
     body, eager, to the cap of the benchmark's cells: the same iteration
@@ -1275,6 +1282,7 @@ def test_fused_body_counts_on_the_card(cuda, monkeypatch):
         bodies = int(st["cg_matvecs"].sum())
         assert counted[(pb.pcg_body, "launches")] == bodies == rec["cg.fused_bodies"]
         assert rec["cg.bodies"] == bodies and counted[(wg.windowed_take, "launches")] == 0
+        assert rec["cg.loop_fused_bodies"] == 0
         assert rec["gather.plain"] == 4 * cfg.iters + 2 * bodies and rec["gather.windowed"] == 0
         seen.append((counted, {k: rec[k] for k in ("gather.plain", "cg.bodies",
                                                    "cg.fused_bodies")}))
@@ -1283,9 +1291,9 @@ def test_fused_body_counts_on_the_card(cuda, monkeypatch):
 
 def test_no_fused_body_off_its_systems(cuda):
     """CUDA solves outside the fused body's systems launch no ``pcg_body``
-    and count no fused body: btridiag, bf16 coupling blocks, row chunks, an
-    odometry with loop closures past the chain, and a one-rank mesh (the
-    sharded packed layout)."""
+    and count no fused body: btridiag, bf16 coupling blocks, row chunks,
+    loop closures under btridiag, and a one-rank mesh (the sharded packed
+    layout)."""
     import torch.distributed as dist
 
     from boslam_torch.config import SolverConfig
@@ -1304,12 +1312,13 @@ def test_no_fused_body_off_its_systems(cuda):
     runs = [(g, bj.replace(preconditioner="btridiag")),
             (g, bj.replace(coupling_dtype="bfloat16")),
             (g, bj.replace(matvec_row_chunk=256)),
-            (_graph(2000, 800, cuda, loop_closures=8), bj)]
+            (_graph(2000, 800, cuda, loop_closures=8), bj.replace(preconditioner="btridiag"))]
     for graph, cfg in runs:
         before = pb.pcg_body.launches
         solve_packed(graph, cfg)
         rec = [r for r in spans.records() if r.name == "solve_packed"][-1].counters
         assert pb.pcg_body.launches == before and rec["cg.fused_bodies"] == 0, cfg
+        assert rec["cg.loop_fused_bodies"] == 0, cfg
     mesh = make_mesh("cuda")
     try:
         before = pb.pcg_body.launches
@@ -1317,3 +1326,72 @@ def test_no_fused_body_off_its_systems(cuda):
         assert pb.pcg_body.launches == before
     finally:
         dist.destroy_process_group()
+
+
+def test_fused_body_repeats_bitwise_on_loop_closures(cuda):
+    """On the 10k loop-closing walk the kernel sums each pose's loop
+    closures in a fixed order with no atomics: 200 bodies from one state,
+    each into new tensors, give one set of bits, one ``pcg_body`` launch
+    a body."""
+    from boslam_torch.ops import pcg_body as pb
+
+    probe = _pcg_body_probe()
+    blocks, pk, mask, precond, rhs, _ = _packed_10k("loops")
+    system, twin = probe.bind(blocks, pk, mask, precond, rhs)[:2]
+    s = probe.start_state(precond, rhs)
+    for _ in range(10):
+        s = twin(s)
+    assert system.loops is not None
+    before = pb.pcg_body.launches
+    first = pb.pcg_body(system, s)
+    for _ in range(199):
+        again = pb.pcg_body(system, s)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert pb.pcg_body.launches - before == 200
+    assert not torch.equal(first[0], s.x)
+
+
+def test_fused_body_counts_loop_closures_on_the_card(cuda, monkeypatch):
+    """A packed block-Jacobi solve of a walk with M3500's density of loop
+    closures runs every body fused with loop rows: eager and captured, one
+    ``pcg_body`` launch a body, the root's "cg.bodies", "cg.fused_bodies"
+    and "cg.loop_fused_bodies" equal, and every fused body bound to the
+    packing's loop rows; the same solve of the chain walk fuses every body
+    with no loop rows ("cg.loop_fused_bodies" 0)."""
+    from boslam_torch.config import SolverConfig
+    from boslam_torch.ops import counters, pcg_body as pb
+    from boslam_torch.solver import schur, schur_packed
+    from boslam_torch.solver.optimizer import solve_packed
+    from boslam_torch.utils import spans
+
+    cfg = SolverConfig(linear_solver="schur_cg", preconditioner="block_jacobi", iters=2,
+                       cg_iters=40, cg_tol=1e-5)
+    names = ("cg.bodies", "cg.fused_bodies", "cg.loop_fused_bodies")
+    fused = schur_packed.fused_cg_body
+    for loops in (1116, 0):
+        g = _graph(2000, 800, cuda, loop_closures=loops)
+        seen = []
+        for eager in (True, False):
+            bound = []
+
+            def spy(blocks, pk, *a, **kw):
+                bound.append(pk.loops is not None)
+                return fused(blocks, pk, *a, **kw)
+
+            with monkeypatch.context() as m:
+                m.setattr(schur_packed, "fused_cg_body", spy)
+                if eager:
+                    m.setattr(schur_packed, "pcg",
+                              lambda *a, **kw: schur.pcg(*a, **kw, _eager=True))
+                before = counters.read()
+                _, st = solve_packed(g, cfg)
+                torch.cuda.synchronize()
+                counted = dict(zip(counters._COUNTERS, (a - b for a, b in zip(counters.read(),
+                                                                             before))))
+            rec = [r for r in spans.records() if r.name == "solve_packed"][-1].counters
+            bodies = int(st["cg_matvecs"].sum())
+            assert counted[(pb.pcg_body, "launches")] == bodies
+            assert tuple(rec[k] for k in names) == (bodies, bodies, bodies if loops else 0)
+            assert bound == [bool(loops)] * cfg.iters
+            seen.append((counted, tuple(rec[k] for k in names)))
+        assert seen[0] == seen[1]

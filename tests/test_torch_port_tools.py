@@ -150,3 +150,27 @@ def test_pcg_body_probe():
         p = r["pcg"]
         assert p["x"] == 0.0 and p["rel_res2"][0] == p["rel_res2"][1]
         assert p["iters"][0] == p["iters"][1] and p["fused_bodies"] >= p["iters"][1]
+
+
+@pytest.mark.parametrize("kernel, twin, missed", [
+    ((3.6e-7, 3.0e-7), (2.9e-8, 2.9e-8), False),  # the twin within an ulp by luck
+    ((7.6e-6, 7.6e-6), (0.0, 0.0), False),  # 64 ulps: the floor
+    ((1.9e-5, 9.9e-6), (2.0e-6, 5.0e-6), False),  # within WORST / BULK of the twin
+    ((2.0e-5, 2.0e-5), (1.0e-7, 1.0e-7), True),  # past both
+    ((1.0e-3, 1.0e-3), (2.0e-5, 2.0e-5), True),  # a transposed block's whole terms
+])
+def test_pcg_body_probe_bound_floor(kernel, twin, missed):
+    """``one_body_misses``: a vector's gap to the float64 twin is held to a
+    factor of the f32 twin's or to FLOOR (64 float32 ulps of the largest
+    entry), the larger; a scalar to SCALAR."""
+    sys.path.insert(0, TOOLS)
+    try:
+        import port_pcg_body_probe as probe
+    finally:
+        sys.path.remove(TOOLS)
+    assert probe.FLOOR == 64 * 2.0**-23
+    worst, bulk = kernel
+    rec = {"f64": {"x": [worst, twin[0], bulk, twin[1]], "rz": [1e-4, 1e-5]}}
+    assert probe.one_body_misses(rec) == (["x"] if missed else [])
+    rec["f64"]["rz"] = [2e-3, 1e-5]
+    assert probe.one_body_misses(rec) == (["x", "rz"] if missed else ["rz"])

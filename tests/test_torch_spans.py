@@ -111,19 +111,37 @@ def test_each_thread_nests_on_its_own_stack():
     assert {"helper", "main"} <= {r.name for r in spans.records()[-2:]}
 
 
-def test_packed_solve_paths_and_counters_agree_with_its_stats(walk):
+def _packed_solve_record(walk, paths):
+    """Solve ``walk`` packed; its root's paths must be ``paths`` and its
+    counters agree with its stats (on the CPU no body is fused, so
+    "cg.fused_bodies" and "cg.loop_fused_bodies" are 0).  Returns the
+    root."""
     g, _ = build_graph(walk, init="triangulate", device="cpu")
     assert set(_last("build").paths) == BUILD
     _, stats = solve_packed(g, CFG)
     rec = _last("solve_packed")
-    assert set(rec.paths) == PACKED
+    assert set(rec.paths) == paths
     # the walk's grids have no window plan: 4 plain gathers an outer (two
     # in the assembly, the reduced rhs, the back-substitution), 2 a matvec
     assert rec.counters == {"gn.outers": CFG.iters,
                             "cg.bodies": int(stats["cg_matvecs"].sum()),
                             "cg.polls": int(stats["cg_polls"].sum()),
-                            "cg.graph_bodies": 0, "cg.fused_bodies": 0, "gather.windowed": 0,
+                            "cg.graph_bodies": 0, "cg.fused_bodies": 0,
+                            "cg.loop_fused_bodies": 0, "gather.windowed": 0,
                             "gather.plain": 4 * CFG.iters + 2 * int(stats["cg_matvecs"].sum())}
+    return rec
+
+
+def test_packed_solve_lists_loop_closures_under_pack():
+    """With loop closures the packing lists them per pose under the span
+    "solve_packed/pack/loops"; on the CPU no body is fused, so
+    "cg.fused_bodies" and "cg.loop_fused_bodies" are 0."""
+    looped = generate_sequence(POSES, 120, seed=3, loop_closures=60)[0]
+    _packed_solve_record(looped, PACKED | {"solve_packed/pack/loops"})
+
+
+def test_packed_solve_paths_and_counters_agree_with_its_stats(walk):
+    rec = _packed_solve_record(walk, PACKED)
     assert rec.paths["solve_packed/step"][0] == CFG.iters
     assert rec.paths["solve_packed/step/pcg/poll"][0] == rec.counters["cg.polls"]
     assert rec.paths["solve_packed"][1] == rec.end_ns - rec.start_ns
@@ -145,7 +163,8 @@ def test_flat_solve_is_one_root(walk):
     rec = _last("solve")
     assert rec.counters == {"cg.bodies": int(stats["cg_matvecs"].sum()),
                             "cg.polls": int(stats["cg_polls"].sum()),
-                            "cg.graph_bodies": 0, "cg.fused_bodies": 0}
+                            "cg.graph_bodies": 0, "cg.fused_bodies": 0,
+                            "cg.loop_fused_bodies": 0}
     assert set(rec.paths) == {"solve", "solve/poll"}
 
 
